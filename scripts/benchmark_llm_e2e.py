@@ -1,9 +1,9 @@
 """End-to-end generation throughput benchmark CLI.
 
-TPU-native analog of the reference's wall-clock `model.generate()` bench
+JAX analog of the reference's wall-clock `model.generate()` bench
 (reference: scripts/benchmark_llm_e2e.py:28-59): measures total tokens/s
 for prefill + full decode through `runtime.generate`, the framework's
-compiled generation loop.
+compiled generation loop. Needs a GPU.
 
 Usage:
   python scripts/benchmark_llm_e2e.py --model llama3-8b --num-layers 8 \
@@ -44,17 +44,27 @@ def parse_args(argv=None):
 
 def main(argv=None):
     a = parse_args(argv)
+    from flash_attention_cute.utils.compile_cache import enable_compile_cache
+    from flash_attention_cute.utils.profiling import (
+        card_name_and_power_limit,
+        require_gpu,
+    )
+
+    dev = require_gpu()
+    enable_compile_cache()
+    print(f"device: {dev.platform} {dev.device_kind} x{len(jax.devices())}")
+    print(f"card: {card_name_and_power_limit()}")
     dtype = jnp.bfloat16 if a.dtype == "bf16" else jnp.float32
 
-    from flash_attention_cute_tpu.models import init_params
-    from flash_attention_cute_tpu.runtime.generate import generate
-    from flash_attention_cute_tpu.runtime.sampling import SamplingParams
+    from flash_attention_cute.models import init_params
+    from flash_attention_cute.runtime.generate import generate
+    from flash_attention_cute.runtime.sampling import SamplingParams
 
     if a.hf:
-        from flash_attention_cute_tpu.models.convert import load_hf_model
+        from flash_attention_cute.models.convert import load_hf_model
         cfg, params = load_hf_model(a.model, dtype=dtype)
     else:
-        from flash_attention_cute_tpu.models.presets import PRESETS
+        from flash_attention_cute.models.presets import PRESETS
         if a.model not in PRESETS:
             sys.exit(f"unknown preset {a.model!r}; have {sorted(PRESETS)}")
         cfg = PRESETS[a.model](dtype=dtype)
@@ -72,7 +82,7 @@ def main(argv=None):
             params, cfg, ids, max_new_tokens=a.max_new_tokens,
             sampling=sampling,
         )
-        return float(out[0, -1])  # one host sync
+        return jax.block_until_ready(out)
 
     run()  # compile + warmup
     times = []

@@ -37,13 +37,13 @@ def parse_args(argv=None):
     p.add_argument("--max-prompt", type=int, default=512)
     p.add_argument("--max-new-tokens", type=int, default=64)
     p.add_argument("--page-size", type=int, default=128,
-                   help=">=128 recommended on TPU (DMA granularity)")
+                   help="tokens per KV page")
     p.add_argument("--num-pages", type=int, default=0, help="0 = sized to fit")
     p.add_argument("--dtype", choices=["bf16", "fp32"], default="bf16")
     p.add_argument("--decode-chunk", type=int, default=8,
                    help="tokens decoded per engine round in one jitted "
-                        "scan; larger amortizes host round trips (high-RTT "
-                        "links), smaller tightens admission latency")
+                        "scan; larger amortizes host round trips, "
+                        "smaller tightens admission latency")
     p.add_argument("--prefill-chunk", type=int, default=0,
                    help=">0: chunked admission (bounds HOL blocking)")
     p.add_argument("--prefill-group", type=int, default=1,
@@ -73,9 +73,8 @@ def parse_args(argv=None):
                         "projection (models/quantize.py)")
     p.add_argument("--init-host", action="store_true",
                    help="with --quantize-weights: init + quantize on the "
-                        "host CPU and ship only the int8 image (for "
-                        "models whose dense image exceeds HBM, e.g. "
-                        "full-depth Llama-3-8B on one v5e)")
+                        "host CPU and ship only the quantized image (for "
+                        "models whose dense image exceeds device memory)")
     p.add_argument("--weight-bits", type=int, choices=[8, 4], default=8,
                    help="with --quantize-weights: 8 = per-channel int8, "
                         "4 = 128-group int4 (capacity play)")
@@ -105,15 +104,25 @@ def _pct(xs, q):
 
 def main(argv=None):
     a = parse_args(argv)
+    from flash_attention_cute.utils.compile_cache import enable_compile_cache
+    from flash_attention_cute.utils.profiling import (
+        card_name_and_power_limit,
+        require_gpu,
+    )
+
+    dev = require_gpu()
+    enable_compile_cache()
+    print(f"device: {dev.platform} {dev.device_kind} x{len(jax.devices())}")
+    print(f"card: {card_name_and_power_limit()}")
     dtype = jnp.bfloat16 if a.dtype == "bf16" else jnp.float32
 
-    from flash_attention_cute_tpu.models import init_params
-    from flash_attention_cute_tpu.models.presets import PRESETS
-    from flash_attention_cute_tpu.runtime.engine import ServingEngine
+    from flash_attention_cute.models import init_params
+    from flash_attention_cute.models.presets import PRESETS
+    from flash_attention_cute.runtime.engine import ServingEngine
 
     if a.load_params:
         import time as _time
-        from flash_attention_cute_tpu.models.checkpoint import (
+        from flash_attention_cute.models.checkpoint import (
             load_checkpoint,
         )
         t0 = _time.perf_counter()
@@ -127,17 +136,17 @@ def main(argv=None):
             cfg = dataclasses.replace(cfg, num_layers=a.num_layers)
         maybe_fuse = (lambda p: p)
         if a.fuse_projections:
-            from flash_attention_cute_tpu.models.fuse import (
+            from flash_attention_cute.models.fuse import (
                 fuse_projections,
             )
             maybe_fuse = fuse_projections
         if a.quantize_weights:
             import functools
-            from flash_attention_cute_tpu.models.quantize import (
+            from flash_attention_cute.models.quantize import (
                 quantize_params, quantize_params_on_host,
             )
             if a.init_host:
-                from flash_attention_cute_tpu.models.transformer import (
+                from flash_attention_cute.models.transformer import (
                     init_params_host,
                 )
                 params = quantize_params_on_host(
@@ -161,10 +170,6 @@ def main(argv=None):
         for rid in range(a.requests)
     }
 
-    # Off-TPU (CPU smoke runs of this CLI) the Pallas kernels need
-    # interpret mode; on hardware leave the engine default.
-    interp = True if jax.default_backend() != "tpu" else None
-
     kv_dtype = {"model": None, "int8": jnp.int8,
                 "fp8": jnp.float8_e4m3fn}[a.kv_dtype]
 
@@ -176,7 +181,7 @@ def main(argv=None):
     num_pages = a.num_pages or (a.slots * pages_per_seq + 1)
 
     if a.speculative != "off":
-        from flash_attention_cute_tpu.runtime.spec_engine import (
+        from flash_attention_cute.runtime.spec_engine import (
             SpeculativeServingEngine,
         )
 
@@ -184,7 +189,7 @@ def main(argv=None):
             gamma=a.spec_gamma, rounds_per_call=a.spec_rounds,
             slots=a.slots, num_pages=num_pages,
             page_size=a.page_size, pages_per_seq=pages_per_seq,
-            prefill_group=a.prefill_group, interpret=interp,
+            prefill_group=a.prefill_group,
             enable_prefix_cache=a.prefix_cache, kv_dtype=kv_dtype,
         )
         if a.speculative == "ngram":
@@ -211,7 +216,7 @@ def main(argv=None):
             params, cfg, slots=a.slots, num_pages=num_pages,
             page_size=a.page_size, pages_per_seq=pages_per_seq,
             decode_chunk=a.decode_chunk, prefill_chunk=a.prefill_chunk,
-            prefill_group=a.prefill_group, interpret=interp,
+            prefill_group=a.prefill_group,
             enable_prefix_cache=a.prefix_cache, kv_dtype=kv_dtype,
         )
 
@@ -253,8 +258,7 @@ def main(argv=None):
     print(f"wall {wall:7.2f} s   "
           f"{total_new / wall:8.1f} new tokens/s   "
           f"{(total_new + total_prompt) / wall:8.1f} total tokens/s")
-    # Dispatch receipts: on a high-RTT (tunneled) link, host round trips
-    # per generated token bound serving throughput.
+    # Dispatch receipts: host round trips per generated token.
     print(f"device dispatches {st['device_calls']}   "
           f"round-trips/token {st['device_calls'] / max(total_new, 1):.4f}  "
           f"(decode_chunk={a.decode_chunk})")

@@ -1,4 +1,4 @@
-"""`flash_attn_func` API contract tests.
+"""`flash_attn_func` API contract tests and the route selection point.
 
 Mirrors the reference's executable preconditions
 (reference: csrc/flash_attention_api.cpp:17-59 TORCH_CHECKs) and the
@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu import flash_attn_func
-from flash_attention_cute_tpu.ops.reference import attention_reference
+from flash_attention_cute import flash_attn_func
+from flash_attention_cute.ops.reference import attention_reference
 
 
 def make(b=1, hq=4, hkv=2, sq=128, skv=128, d=64, dtype=jnp.float32):
@@ -31,8 +31,7 @@ def test_default_scale_is_rsqrt_d():
 
 
 def test_decode_routing_matches_prefill_kernel():
-    """seqlen_q == 1 goes through the packed decode kernel; result must agree
-    with running the same inputs through the reference."""
+    """seqlen_q == 1 (decode over a cache) must agree with the reference."""
     q, k, v = make(sq=1, skv=512)
     got = flash_attn_func(q, k, v, causal=True, interpret=True)
     want = attention_reference(q, k, v, causal=True)
@@ -41,7 +40,7 @@ def test_decode_routing_matches_prefill_kernel():
 
 def test_cpu_fallback_without_interpret():
     q, k, v = make()
-    got = flash_attn_func(q, k, v, causal=True)  # on_tpu() False under tests
+    got = flash_attn_func(q, k, v, causal=True)  # the CPU's XLA route
     want = attention_reference(q, k, v, causal=True)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-6)
 
@@ -93,8 +92,8 @@ def test_logit_softcap_through_api():
     import jax.numpy as jnp
     import numpy as np
 
-    from flash_attention_cute_tpu.api import flash_attention_forward
-    from flash_attention_cute_tpu.ops.reference import attention_reference
+    from flash_attention_cute.api import flash_attention_forward
+    from flash_attention_cute.ops.reference import attention_reference
 
     ks = jax.random.split(jax.random.key(0), 3)
     q = jax.random.normal(ks[0], (1, 4, 128, 64), jnp.float32)
@@ -117,29 +116,115 @@ def test_logit_softcap_through_api():
                                atol=2e-5, rtol=2e-2)
 
 
-def test_score_dtype_routes_to_prefill_and_rejects_other_paths():
-    from flash_attention_cute_tpu.api import flash_attention_forward
+@pytest.mark.parametrize(
+    "platform,interpret,want",
+    [
+        ("gpu", None, ("cudnn", "triton")),
+        ("cpu", None, ("xla", "xla")),
+        ("cpu", True, ("xla", "triton")),
+        ("gpu", True, ("xla", "triton")),
+    ],
+)
+def test_select_routes_by_platform(platform, interpret, want):
+    from flash_attention_cute.dispatch import select_routes
 
-    ks = jax.random.split(jax.random.key(3), 3)
-    q = jax.random.normal(ks[0], (1, 4, 128, 64), jnp.bfloat16)
-    k = jax.random.normal(ks[1], (1, 2, 128, 64), jnp.bfloat16)
-    v = jax.random.normal(ks[2], (1, 2, 128, 64), jnp.bfloat16)
-    out = flash_attention_forward(
-        q, k, v, causal=True, score_dtype="int8", interpret=True
+    r = select_routes(interpret, platform=platform)
+    assert (r.dense, r.paged_decode) == want
+
+
+def test_select_routes_reads_running_platform():
+    from flash_attention_cute.dispatch import select_routes
+
+    assert select_routes() == select_routes(platform="cpu")
+
+
+@pytest.mark.parametrize("platform", ["rocm", "METAL", "cuda"])
+def test_select_routes_rejects_unknown_platform(platform):
+    """No silent fallback: a platform without routes is an error."""
+    from flash_attention_cute.dispatch import select_routes
+
+    with pytest.raises(ValueError, match="no attention routes"):
+        select_routes(platform=platform)
+
+
+@pytest.mark.parametrize(
+    "kw,want_cudnn",
+    [(dict(causal=True), True), (dict(causal=True, logit_softcap=30.0), False),
+     (dict(causal=True, kv_length=jnp.full((1,), 100, jnp.int32),
+           q_offset=jnp.full((1,), -28, jnp.int32)), False)],
+    ids=["plain", "softcap", "kv_length"],
+)
+def test_api_takes_cudnn_only_where_supported(monkeypatch, kw, want_cudnn):
+    """With the GPU's routes, the API hands cuDNN exactly the calls it
+    supports and everything else to the XLA route."""
+    import flash_attention_cute.api as api
+    from flash_attention_cute import dispatch
+
+    gpu_routes = dispatch.select_routes(platform="gpu")
+    monkeypatch.setattr(
+        dispatch, "select_routes", lambda interpret=None: gpu_routes
     )
-    ref = attention_reference(q, k, v, causal=True)
-    np.testing.assert_allclose(
-        np.asarray(out, np.float32), np.asarray(ref, np.float32),
-        atol=5e-2, rtol=5e-2,
-    )
-    # Decode and chunked-extend routes run bf16 scores — loud rejection
-    # rather than a silently ignored argument.
-    with pytest.raises(ValueError, match="dense prefill"):
-        flash_attention_forward(
-            q[:, :, :1], k, v, score_dtype="int8", interpret=True
-        )
-    with pytest.raises(ValueError, match="dense prefill"):
-        flash_attention_forward(
-            q, k, v, causal=True, score_dtype="int8",
-            kv_length=jnp.full((1,), 128, jnp.int32), interpret=True
-        )
+    calls = []
+    real = api.cudnn_attention
+
+    def fake_cudnn(q, k, v, scale, causal, window):
+        calls.append(1)
+        return real(q, k, v, scale, causal, window, implementation="xla")
+
+    monkeypatch.setattr(api, "cudnn_attention", fake_cudnn)
+    q, k, v = make(dtype=jnp.bfloat16)
+    out = flash_attn_func(q, k, v, **kw)
+    assert bool(calls) is want_cudnn
+    ref = attention_reference(q, k, v, **kw)
+    np.testing.assert_allclose(np.asarray(out, np.float32),
+                               np.asarray(ref, np.float32), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_no_production_path_sets_interpret():
+    """`interpret` is the tests' switch for the Pallas interpreter; no
+    production module, script or entry point may turn it on
+    (dispatch.py, which defines what the switch selects, is exempt)."""
+    import pathlib
+    import re
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    files = [
+        *(f for f in (root / "flash_attention_cute").rglob("*.py")
+          if f.name != "dispatch.py"),
+        *(root / "scripts").glob("*.py"),
+        root / "bench.py", root / "chip_smoke.py", root / "__graft_entry__.py",
+    ]
+    pat = re.compile(r"interpret\s*=\s*True|--interpret|interpret\s*=\s*not")
+    hits = [
+        f"{f.relative_to(root)}:{i}"
+        for f in files
+        for i, line in enumerate(f.read_text().splitlines(), 1)
+        if pat.search(line)
+    ]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize(
+    "preset,want",
+    [("", "--xla_gpu_enable_triton_gemm=false"),
+     ("--xla_gpu_enable_triton_gemm=true", "--xla_gpu_enable_triton_gemm=true")],
+    ids=["unset", "user_set"],
+)
+def test_import_turns_off_triton_gemm_unless_user_set(preset, want):
+    """Importing the package turns XLA's Triton gemm emitter off (it
+    miscompiles some full-width bf16 gemms on the H100) before JAX's
+    backend starts, and leaves a flag the user set alone."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, XLA_FLAGS=preset, JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import os, flash_attention_cute; print(os.environ['XLA_FLAGS'])"],
+        cwd=root, env=env, capture_output=True, text=True, check=True,
+    ).stdout.split()
+    assert out == [want]

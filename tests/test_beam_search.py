@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.models.transformer import forward, init_params
-from flash_attention_cute_tpu.runtime.beam_search import beam_generate
-from flash_attention_cute_tpu.runtime.generate import greedy_generate
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.models.transformer import forward, init_params
+from flash_attention_cute.runtime.beam_search import beam_generate
+from flash_attention_cute.runtime.generate import greedy_generate
 
 
 @pytest.fixture(scope="module")

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import forward, init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
+from flash_attention_cute.models import forward, init_params
+from flash_attention_cute.models.config import tiny_test_config
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from flash_attention_cute_tpu.models.checkpoint import (
+    from flash_attention_cute.models.checkpoint import (
         load_checkpoint,
         save_checkpoint,
     )
@@ -34,11 +34,11 @@ def test_checkpoint_roundtrip(tmp_path):
 def test_checkpoint_restore_with_shardings(tmp_path, mesh8):
     from jax.sharding import NamedSharding
 
-    from flash_attention_cute_tpu.models.checkpoint import (
+    from flash_attention_cute.models.checkpoint import (
         load_checkpoint,
         save_checkpoint,
     )
-    from flash_attention_cute_tpu.parallel.sharding import param_pspecs
+    from flash_attention_cute.parallel.sharding import param_pspecs
 
     cfg = tiny_test_config(num_q_heads=8, num_kv_heads=4)
     params = init_params(cfg, jax.random.key(1))
@@ -55,25 +55,76 @@ def test_checkpoint_restore_with_shardings(tmp_path, mesh8):
     )
 
 
+H100 = "NVIDIA H100 80GB HBM3"
+
+
 def test_roofline_reports_bound():
-    from flash_attention_cute_tpu.utils.profiling import roofline
+    """XLA's cost analysis against the H100 row of the peak table (the
+    CPU here has no row, so the table is named explicitly)."""
+    from flash_attention_cute.utils.profiling import roofline
 
     def big_matmul(a, b):
         return a @ b
 
     a = jnp.zeros((1024, 1024), jnp.bfloat16)
     b = jnp.zeros((1024, 1024), jnp.bfloat16)
-    r = roofline(big_matmul, a, b)
+    r = roofline(big_matmul, a, b, device_kind=H100)
     assert r["flops"] > 0 and r["bytes"] > 0
     assert r["bound"] in ("compute", "memory")
     assert r["min_time_us"] > 0
+    assert (r["peak_tflops"], r["peak_gbs"]) == (989.0, 3350.0)
 
-    r2 = roofline(big_matmul, a, b, seconds=1e-3)
+    r2 = roofline(big_matmul, a, b, seconds=1e-3, device_kind=H100)
     assert 0 < r2["achieved_tflops"] < r2["peak_tflops"]
 
 
+@pytest.mark.parametrize("kind", ["cpu", "AMD Instinct MI300X", "NVIDIA A100-SXM4-80GB"])
+def test_peak_table_raises_on_unknown_device(kind):
+    """A device missing from the peak table is an error, never a silent
+    fallback to another device's peaks."""
+    from flash_attention_cute.utils.profiling import device_peaks, roofline
+
+    with pytest.raises(KeyError, match="no published peaks"):
+        device_peaks(kind)
+    if kind == "cpu":  # the device these tests run on
+        with pytest.raises(KeyError):
+            roofline(lambda a: a * 2, jnp.ones((8,)))
+
+
+def test_compile_cache_uses_env_dir_and_sets_nothing(monkeypatch, tmp_path):
+    import jax
+
+    from flash_attention_cute.utils.compile_cache import enable_compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert enable_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_defaults_to_fixed_checkout_dir(monkeypatch):
+    """Without the variable the cache sits at <checkout>/.jax_cache: a
+    fixed path (the cache key includes it), never a temporary one."""
+    import os
+
+    import jax
+
+    from flash_attention_cute.utils.compile_cache import enable_compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        got = enable_compile_cache()
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert got == os.path.join(root, ".jax_cache")
+        assert got == enable_compile_cache()
+        assert jax.config.jax_compilation_cache_dir == got
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
 def test_trace_context(tmp_path):
-    from flash_attention_cute_tpu.utils.profiling import annotate, trace
+    from flash_attention_cute.utils.profiling import annotate, trace
 
     with trace(str(tmp_path / "tr")):
         with annotate("phase"):
@@ -86,12 +137,12 @@ def test_checkpoint_gemma2_config_round_trip(tmp_path):
     restore HASHABLE (they ride jit static args) and equal."""
     import jax
 
-    from flash_attention_cute_tpu.models import init_params
-    from flash_attention_cute_tpu.models.checkpoint import (
+    from flash_attention_cute.models import init_params
+    from flash_attention_cute.models.checkpoint import (
         load_checkpoint,
         save_checkpoint,
     )
-    from flash_attention_cute_tpu.models.config import tiny_test_config
+    from flash_attention_cute.models.config import tiny_test_config
 
     cfg = tiny_test_config(
         num_layers=2, layer_window_pattern=(8, None),
@@ -115,12 +166,12 @@ def test_checkpoint_lora_bank_round_trip(tmp_path):
     import jax
     import numpy as np
 
-    from flash_attention_cute_tpu.models.checkpoint import (
+    from flash_attention_cute.models.checkpoint import (
         load_checkpoint,
         save_checkpoint,
     )
-    from flash_attention_cute_tpu.models.config import tiny_test_config
-    from flash_attention_cute_tpu.models.lora import init_lora_params
+    from flash_attention_cute.models.config import tiny_test_config
+    from flash_attention_cute.models.lora import init_lora_params
 
     cfg = tiny_test_config(num_layers=2)
     lora = init_lora_params(cfg, num_adapters=3, rank=4,
@@ -135,15 +186,14 @@ def test_checkpoint_lora_bank_round_trip(tmp_path):
 @pytest.mark.parametrize("bits", [8, 4])
 def test_checkpoint_quantized_round_trip(tmp_path, bits):
     """Quantized pytrees must round-trip bit-exactly: the dataclass
-    statics (in_dim/out/impl) live in quant.json because orbax restores
-    raw pytrees. This is the 'quantize once, restore in seconds' path —
-    the full-depth host init+quantize costs ~18 min."""
-    from flash_attention_cute_tpu.models.checkpoint import (
+    statics (in_dim/out) live in quant.json because orbax restores raw
+    pytrees. This is the 'quantize once, restore in one read' path."""
+    from flash_attention_cute.models.checkpoint import (
         load_checkpoint,
         save_checkpoint,
     )
-    from flash_attention_cute_tpu.models.quantize import quantize_params
-    from flash_attention_cute_tpu.ops.quantized_matmul import (
+    from flash_attention_cute.models.quantize import quantize_params
+    from flash_attention_cute.ops.quantized_matmul import (
         QuantizedWeight,
         QuantizedWeight4,
     )
@@ -157,8 +207,7 @@ def test_checkpoint_quantized_round_trip(tmp_path, bits):
     for key in ("q_proj", "down_proj"):
         leaf, leaf2 = qp["layers"][key], qp2["layers"][key]
         assert isinstance(leaf2, cls)
-        assert (leaf2.in_dim, leaf2.out, leaf2.impl) == (
-            leaf.in_dim, leaf.out, leaf.impl)
+        assert (leaf2.in_dim, leaf2.out) == (leaf.in_dim, leaf.out)
         np.testing.assert_array_equal(np.asarray(leaf2.values),
                                       np.asarray(leaf.values))
         np.testing.assert_array_equal(np.asarray(leaf2.scales),
@@ -170,7 +219,7 @@ def test_checkpoint_quantized_round_trip(tmp_path, bits):
 
 
 def test_checkpoint_dense_writes_no_quant_meta(tmp_path):
-    from flash_attention_cute_tpu.models.checkpoint import (
+    from flash_attention_cute.models.checkpoint import (
         load_checkpoint,
         save_checkpoint,
     )

@@ -10,10 +10,10 @@ import jax
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.runtime.dfa_compile import compile_regex_dfa
-from flash_attention_cute_tpu.runtime.engine import ServingEngine
+from flash_attention_cute.models import init_params
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.runtime.dfa_compile import compile_regex_dfa
+from flash_attention_cute.runtime.engine import ServingEngine
 
 
 def _enumerate(dfa, vocab, max_len, eos=None):

@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import forward, init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.runtime.engine import ServingEngine
+from flash_attention_cute.models import forward, init_params
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.runtime.engine import ServingEngine
 
 
 @pytest.fixture(scope="module")
@@ -127,7 +127,7 @@ def test_engine_sampling_deterministic_across_preemption(model):
     """temperature>0: per-(request, position) keys make recompute replay
     the same samples, so results are identical with and without page
     pressure (preemptions)."""
-    from flash_attention_cute_tpu.runtime.sampling import SamplingParams
+    from flash_attention_cute.runtime.sampling import SamplingParams
 
     cfg, params = model
     rng = np.random.default_rng(4)
@@ -180,7 +180,7 @@ def test_engine_quantized_pages_match_contiguous_quantized(model):
     loop exactly (same per-token quantize-at-write semantics; only the
     page indirection differs)."""
     import jax.numpy as jnp
-    from flash_attention_cute_tpu.models.cache import QuantizedKVCache
+    from flash_attention_cute.models.cache import QuantizedKVCache
 
     cfg, params = model
     prompt = [7, 3, 11, 2, 9, 4, 1]
@@ -261,7 +261,7 @@ def test_engine_data_parallel_replicas(model):
     import jax
     from jax.sharding import Mesh
 
-    from flash_attention_cute_tpu.runtime.dp_engine import (
+    from flash_attention_cute.runtime.dp_engine import (
         DataParallelServingEngine,
     )
 
@@ -298,7 +298,7 @@ def test_engine_data_parallel_interleaves_replicas(model):
     import jax
     from jax.sharding import Mesh
 
-    from flash_attention_cute_tpu.runtime.dp_engine import (
+    from flash_attention_cute.runtime.dp_engine import (
         DataParallelServingEngine,
     )
 
@@ -338,7 +338,7 @@ def test_engine_data_parallel_load_accounting_closes(model):
     import jax
     from jax.sharding import Mesh
 
-    from flash_attention_cute_tpu.runtime.dp_engine import (
+    from flash_attention_cute.runtime.dp_engine import (
         DataParallelServingEngine,
     )
 
@@ -417,10 +417,10 @@ def test_engine_never_admittable_prompt_fails(model):
 def test_engine_sliding_window_model():
     """Qwen2-style windowed layers through the paged serving engine:
     outputs must match the contiguous-cache forward token by token."""
-    from flash_attention_cute_tpu.models import forward
-    from flash_attention_cute_tpu.models.cache import KVCache
-    from flash_attention_cute_tpu.models.config import tiny_test_config
-    from flash_attention_cute_tpu.models import init_params
+    from flash_attention_cute.models import forward
+    from flash_attention_cute.models.cache import KVCache
+    from flash_attention_cute.models.config import tiny_test_config
+    from flash_attention_cute.models import init_params
 
     cfg = tiny_test_config(
         num_layers=4, sliding_window=12, use_sliding_window=True,
@@ -732,7 +732,7 @@ def test_engine_tensor_parallel_prefix_cache_and_lora(model):
     import jax
     from jax.sharding import Mesh
 
-    from flash_attention_cute_tpu.models.lora import init_lora_params
+    from flash_attention_cute.models.lora import init_lora_params
 
     cfg, params = model
     lora = init_lora_params(cfg, num_adapters=2, rank=4,

@@ -17,10 +17,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.runtime.engine import ServingEngine
-from flash_attention_cute_tpu.runtime.spec_engine import (
+from flash_attention_cute.models import init_params
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.runtime.engine import ServingEngine
+from flash_attention_cute.runtime.spec_engine import (
     SpeculativeServingEngine,
 )
 

@@ -1,10 +1,13 @@
-"""Prefill flash-attention kernel vs fp32 XLA reference.
+"""Dense (prefill) attention routes vs the fp32 HIGHEST-precision oracle.
 
 Config matrix modeled on the reference's documented sweep
 (reference: scripts/benchmark_kernel.py:174-194): MHA/GQA/MQA x causal x
-dtype x head_dim 64/128, plus ragged (non-multiple-of-block) shapes and
-cross-seqlen (Sq != Skv) bottom-right-causal cases the reference kernel
-supports (csrc/mask.cuh:37-39).
+dtype x head_dim, plus ragged and cross-seqlen (Sq != Skv)
+bottom-right-causal cases the reference kernel supports
+(csrc/mask.cuh:37-39). On the CPU `flash_attention_forward` takes the
+grouped XLA route; the cuDNN route's argument mapping is checked through
+`jax.nn.dot_product_attention(implementation="xla")`, and its HLO on the
+card by the `gpu`-marked test.
 """
 
 import jax
@@ -12,8 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.ops.flash_fwd import flash_attention_fwd
-from flash_attention_cute_tpu.ops.reference import attention_reference
+from flash_attention_cute import flash_attention_forward
+from flash_attention_cute.ops.attention import cudnn_attention, cudnn_supports
+from flash_attention_cute.ops.reference import attention_reference
 
 
 def make_qkv(key, b, hq, hkv, sq, skv, d, dtype):
@@ -26,7 +30,9 @@ def make_qkv(key, b, hq, hkv, sq, skv, d, dtype):
 
 def tol_for(dtype):
     # Reference accepts atol=1e-3 for fp16 vs an independent oracle
-    # (scripts/benchmark_kernel.py:114-123); bf16 has 3 fewer mantissa bits.
+    # (scripts/benchmark_kernel.py:114-123); bf16 has 3 fewer mantissa
+    # bits, and the route rounds probabilities to the input dtype before
+    # the PV product.
     return {
         jnp.float32.dtype: 2e-5,
         jnp.float16.dtype: 2e-3,
@@ -34,61 +40,57 @@ def tol_for(dtype):
     }[jnp.dtype(dtype)]
 
 
-def check(q, k, v, causal, **kw):
-    out = flash_attention_fwd(q, k, v, causal=causal, interpret=True, **kw)
-    ref = attention_reference(q, k, v, causal=causal)
-    assert out.shape == q.shape
-    assert out.dtype == q.dtype
+def check(out, ref, dtype):
+    assert out.shape == ref.shape
+    assert out.dtype == dtype
     np.testing.assert_allclose(
         np.asarray(out, np.float32),
         np.asarray(ref, np.float32),
-        atol=tol_for(q.dtype),
+        atol=tol_for(dtype),
         rtol=2e-2,
     )
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize(
+def check_fwd(q, k, v, causal, **kw):
+    out = flash_attention_forward(q, k, v, causal=causal, **kw)
+    ref = attention_reference(q, k, v, causal=causal, **kw)
+    check(out, ref, q.dtype)
+    return out
+
+
+GROUPS = pytest.mark.parametrize(
     "hq,hkv",
-    # MHA, GQA, MQA, and Qwen2-7B's odd group (28q/4kv -> group 7)
+    # GQA groups 1 (MHA), 4, 8 (MQA) and Qwen2-7B's odd group 7.
     [(4, 4), (8, 2), (8, 1), (28, 4)],
-    ids=["mha", "gqa", "mqa", "gqa_group7"],
+    ids=["mha", "gqa4", "mqa8", "gqa7"],
 )
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@GROUPS
 def test_head_configs(causal, hq, hkv):
     q, k, v = make_qkv(jax.random.key(0), 2, hq, hkv, 256, 256, 64, jnp.float32)
-    check(q, k, v, causal, block_q=128, block_kv=128)
+    check_fwd(q, k, v, causal)
 
 
 @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float16, jnp.float32])
 def test_dtypes(dtype):
     q, k, v = make_qkv(jax.random.key(1), 1, 4, 2, 256, 256, 64, dtype)
-    check(q, k, v, True, block_q=128, block_kv=128)
+    check_fwd(q, k, v, True)
 
 
 @pytest.mark.parametrize("d", [64, 128, 96, 80, 192, 200, 256])
 def test_head_dims(d):
-    # 96/80 exercise the lane-padding path (reference pads headdim to %8,
-    # flash_attention/flash_attention.py:26-31; TPU pads to the 128-lane
-    # tile). 192/200 exercise the NATIVE-lane layout for 128 < D < 256
-    # (no padding to the next 128-multiple — measured +16-21% on v5e);
-    # 256 the exact two-tile case.
     q, k, v = make_qkv(jax.random.key(2), 1, 4, 4, 128, 128, d, jnp.float32)
-    check(q, k, v, True, block_q=128, block_kv=128)
+    check_fwd(q, k, v, True)
 
 
 def test_fully_masked_rows_inside_visited_block():
-    """Sq > Skv with a block that MIXES fully-masked and valid rows: the
-    masked rows' l gets polluted by exp(mask - mask) == 1 terms unless the
-    kernel zeroes them at store time. Caught on hardware; keep covered."""
+    """Sq > Skv causal: the first Sq - Skv rows see no key and must emit
+    exact zeros (the reference's sum==0 guard), not a uniform average."""
     q, k, v = make_qkv(jax.random.key(8), 1, 2, 2, 300, 100, 64, jnp.float32)
-    out = flash_attention_fwd(
-        q, k, v, causal=True, block_q=256, block_kv=128, interpret=True
-    )
-    ref = attention_reference(q, k, v, causal=True)
+    out = check_fwd(q, k, v, True)
     np.testing.assert_array_equal(np.asarray(out[:, :, :200]), 0.0)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref), atol=2e-5, rtol=2e-2
-    )
 
 
 @pytest.mark.parametrize(
@@ -99,14 +101,9 @@ def test_cross_seqlen_bottom_right_causal(sq, skv):
     """Bottom-right alignment: with Skv > Sq the last q row sees all keys;
     with Sq > Skv the first (Sq - Skv) rows are fully masked -> zero output."""
     q, k, v = make_qkv(jax.random.key(3), 1, 2, 2, sq, skv, 64, jnp.float32)
-    check(q, k, v, True, block_q=128, block_kv=128)
+    out = check_fwd(q, k, v, True)
     if sq > skv:
-        out = flash_attention_fwd(
-            q, k, v, causal=True, block_q=128, block_kv=128, interpret=True
-        )
-        np.testing.assert_array_equal(
-            np.asarray(out[:, :, : sq - skv]), 0.0
-        )
+        np.testing.assert_array_equal(np.asarray(out[:, :, : sq - skv]), 0.0)
 
 
 @pytest.mark.parametrize(
@@ -114,336 +111,105 @@ def test_cross_seqlen_bottom_right_causal(sq, skv):
     [(200, 200), (130, 390), (333, 77)],
 )
 def test_ragged_seqlens(sq, skv):
-    """Sequence lengths that are not multiples of the block sizes."""
+    """Sequence lengths that are not powers of two."""
     q, k, v = make_qkv(jax.random.key(4), 1, 2, 2, sq, skv, 64, jnp.float32)
-    check(q, k, v, True, block_q=128, block_kv=128)
-    check(q, k, v, False, block_q=128, block_kv=128)
+    check_fwd(q, k, v, True)
+    check_fwd(q, k, v, False)
 
 
 def test_custom_scale():
     q, k, v = make_qkv(jax.random.key(5), 1, 2, 2, 128, 128, 64, jnp.float32)
-    out = flash_attention_fwd(
-        q, k, v, sm_scale=0.25, causal=False,
-        block_q=128, block_kv=128, interpret=True,
-    )
-    ref = attention_reference(q, k, v, softmax_scale=0.25, causal=False)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-5, rtol=2e-2)
-
-
-def test_block_size_invariance():
-    """Numerics must not depend on tiling (same guarantee the two CUDA block
-    configs give, reference: csrc/flash_attention_impl.cu:14-25)."""
-    q, k, v = make_qkv(jax.random.key(6), 1, 2, 2, 512, 512, 64, jnp.float32)
-    o1 = flash_attention_fwd(q, k, v, causal=True, block_q=128, block_kv=128, interpret=True)
-    o2 = flash_attention_fwd(q, k, v, causal=True, block_q=256, block_kv=512, interpret=True)
-    np.testing.assert_allclose(np.asarray(o1), np.asarray(o2), atol=1e-5, rtol=1e-5)
+    out = flash_attention_forward(q, k, v, softmax_scale=0.25)
+    ref = attention_reference(q, k, v, softmax_scale=0.25)
+    check(out, ref, q.dtype)
 
 
 def test_llama2_7b_prefill_shape():
     """The reference's default benchmark config, scaled down in batch
     (reference: scripts/benchmark_kernel.py:127-136: B=16 Hq=64 Hkv=8 S=1024 D=128)."""
     q, k, v = make_qkv(jax.random.key(7), 1, 8, 2, 1024, 1024, 128, jnp.bfloat16)
-    check(q, k, v, True, block_q=256, block_kv=256)
+    check_fwd(q, k, v, True)
 
 
-def test_unstable_softmax_matches_stable():
-    """stable=False (no running max, +12% on v5e) must agree with the
-    stable path for well-scaled inputs."""
-    q, k, v = make_qkv(jax.random.key(9), 1, 8, 2, 384, 384, 64, jnp.float32)
-    o1 = flash_attention_fwd(q, k, v, causal=True, fuse_group=True,
-                             block_q=128, block_kv=128, interpret=True)
-    o2 = flash_attention_fwd(q, k, v, causal=True, fuse_group=True,
-                             stable=False,
-                             block_q=128, block_kv=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(o1), np.asarray(o2),
-                               atol=1e-5, rtol=1e-4)
-
-
-def test_lazy_max_matches_strict():
-    """stable=True (lazy running max — the round-2 overlap fix) must agree
-    with stable='strict' (classic current-block max) to float tolerance:
-    the max reference point cancels in o = acc / l. Checked with large
-    score magnitudes (scaled q) so the running max actually moves, across
-    causal and windowed paths."""
-    q, k, v = make_qkv(jax.random.key(11), 1, 8, 2, 384, 384, 64, jnp.float32)
-    q = q * 4.0  # logits span tens of nats: the max chain is exercised
-    for kwargs in (
-        dict(causal=True),
-        dict(causal=False),
-        dict(causal=True, window=100),
-    ):
-        o_lazy = flash_attention_fwd(
-            q, k, v, fuse_group=True, block_q=128, block_kv=128,
-            interpret=True, **kwargs,
-        )
-        o_strict = flash_attention_fwd(
-            q, k, v, fuse_group=True, stable="strict", block_q=128,
-            block_kv=128, interpret=True, **kwargs,
-        )
-        np.testing.assert_allclose(
-            np.asarray(o_lazy), np.asarray(o_strict), atol=1e-5, rtol=1e-4
-        )
-        ref = attention_reference(q, k, v, **kwargs)
-        np.testing.assert_allclose(
-            np.asarray(o_lazy, np.float32), np.asarray(ref, np.float32),
-            atol=2e-5, rtol=2e-2,
-        )
-
-
-def test_lazy_max_deeply_negative_rows_exact():
-    """Rows whose maximum scaled score is far below -126 log2-units must
-    still return a valid softmax average, not underflowed zeros: with the
-    round-2 0.0 running-max init, exp2(s - 0) underflowed for every
-    element of such a row (l == 0 -> exact-zero output). The -inf init +
-    strict sub-block-0 anchor keeps them exact (round-2 advisor finding)."""
-    q, k, v = make_qkv(jax.random.key(13), 1, 2, 1, 256, 256, 64, jnp.float32)
-    # Push every logit to ~-300 nats: q rows scaled large, k shifted so all
-    # dot products are hugely negative but finite.
-    q = q * 10.0 - 30.0
-    k = k - 10.0
-    o_lazy = flash_attention_fwd(
-        q, k, v, causal=True, fuse_group=True, block_q=128, block_kv=128,
-        interpret=True,
-    )
-    o_strict = flash_attention_fwd(
-        q, k, v, causal=True, fuse_group=True, stable="strict",
-        block_q=128, block_kv=128, interpret=True,
-    )
-    # No row may collapse to exact zeros (row 0 attends to one key: its
-    # output is exactly that V row regardless of score magnitude).
-    norms = np.abs(np.asarray(o_lazy, np.float32)).sum(-1)
-    assert (norms > 0).all(), "underflowed rows returned exact zeros"
-    # Lazy routes to the diag-first kernel, strict to the general one:
-    # different sub-block decompositions round differently at this extreme
-    # (-300 nat) score scale.
-    np.testing.assert_allclose(
-        np.asarray(o_lazy), np.asarray(o_strict), atol=1e-3, rtol=1e-3
-    )
-    ref = attention_reference(q, k, v, causal=True)
-    # atol 1e-3: at ~-300-nat score scale a handful of near-zero softmax
-    # weights land on different f32 rounding than the two-pass reference.
-    np.testing.assert_allclose(
-        np.asarray(o_lazy, np.float32), np.asarray(ref, np.float32),
-        atol=1e-3, rtol=2e-2,
-    )
-
-
-@pytest.mark.parametrize(
-    "sq,skv,block", [
-        (512, 512, 128),   # aligned square, multi-tile
-        (500, 500, 128),   # ragged kv tail (kv_padded bias path)
-        (256, 512, 128),   # offset 256 = 2 blocks (block-aligned decode-ish)
-        (384, 384, 256),   # partial last tile + single-ish grid
-    ],
-)
-def test_diag_first_kernel_matches_reference(sq, skv, block):
-    """Round-3 diag-first fast path (descending-KV hybrid): parity with
-    the fp32 reference across aligned/ragged/offset geometries that route
-    into _flash_fwd_kernel_diag (causal, no window, stable=True,
-    block_q == block_kv, offset % block == 0)."""
-    q, k, v = make_qkv(
-        jax.random.key(17), 2, 8, 2, sq, skv, 64, jnp.float32
-    )
-    out = flash_attention_fwd(
-        q, k, v, causal=True, block_q=block, block_kv=block,
-        interpret=True,
-    )
-    ref = attention_reference(q, k, v, causal=True)
-    np.testing.assert_allclose(
-        np.asarray(out, np.float32), np.asarray(ref, np.float32),
-        atol=2e-5, rtol=2e-2,
-    )
-
-
-def test_clamp_counter_zero_on_benign_and_fires_on_adversarial():
-    """Envelope observability (round-3): return_clamps must report 0 for
-    inputs inside the lazy-max envelope (result exact), report > 0 for an
-    adversarial within-KV-block score spread beyond 110 log2-units (~76
-    nats), and stable='strict' must stay exact on the same input."""
-    q, k, v = make_qkv(jax.random.key(21), 1, 4, 1, 128, 128, 64, jnp.float32)
-
-    # Benign: normal-scale logits -> no saturation, identical output.
-    o_plain = flash_attention_fwd(
-        q, k, v, causal=True, block_q=128, block_kv=128, interpret=True,
-    )
-    o_cnt, clamps = flash_attention_fwd(
-        q, k, v, causal=True, block_q=128, block_kv=128,
-        return_clamps=True, interpret=True,
-    )
-    assert float(np.asarray(clamps).sum()) == 0.0, np.asarray(clamps)
-    # o_plain routes to the diag-first kernel; return_clamps runs the
-    # general fused kernel — same math, different rounding order.
-    np.testing.assert_allclose(
-        np.asarray(o_plain, np.float32), np.asarray(o_cnt, np.float32),
-        atol=1e-5, rtol=1e-4,
-    )
-
-    # Adversarial: sub-block 0 anchors each KV block's max; rows 32..127
-    # (sub-blocks 1..3 at inner=4) carry scores hundreds of log2-units
-    # above that anchor -> the +110 clamp engages and must be reported.
-    k_adv = np.array(k)  # writable copy
-    k_adv[:, :, 32:, :] = k_adv[:, :, 32:, :] * 60.0
-    q_adv = np.asarray(q) * 10.0
-    _, clamps_adv = flash_attention_fwd(
-        jnp.asarray(q_adv), jnp.asarray(k_adv), v, causal=True,
-        block_q=128, block_kv=128, inner_splits=4, return_clamps=True,
-        interpret=True,
-    )
-    n_sat = float(np.asarray(clamps_adv).sum())
-    assert n_sat > 0, "adversarial spread did not trigger the counter"
-
-    # The escape hatch stays exact on the same adversarial input.
-    o_strict = flash_attention_fwd(
-        jnp.asarray(q_adv), jnp.asarray(k_adv), v, causal=True,
-        stable="strict", block_q=128, block_kv=128, interpret=True,
-    )
-    ref = attention_reference(
-        jnp.asarray(q_adv), jnp.asarray(k_adv), v, causal=True
-    )
-    np.testing.assert_allclose(
-        np.asarray(o_strict, np.float32), np.asarray(ref, np.float32),
-        atol=2e-5, rtol=2e-2,
-    )
-
-
-def test_logit_softcap_matches_reference():
-    """Gemma-style tanh soft-capping (in log2-score space in-kernel)."""
+@pytest.mark.parametrize("causal", [False, True])
+def test_logit_softcap_matches_reference(causal):
+    """Gemma-style tanh soft-capping of the scaled scores."""
     q, k, v = make_qkv(jax.random.key(10), 1, 4, 2, 256, 256, 64, jnp.float32)
-    out = flash_attention_fwd(q, k, v, causal=True, logit_softcap=30.0,
-                              block_q=128, block_kv=128, interpret=True)
-    ref = attention_reference(q, k, v, causal=True, logit_softcap=30.0)
-    np.testing.assert_allclose(
-        np.asarray(out, np.float32), np.asarray(ref, np.float32),
-        atol=2e-5, rtol=2e-2,
-    )
+    out = check_fwd(q, k, v, causal, logit_softcap=30.0)
     # Must differ from the uncapped result (cap actually does something).
-    ref_uncapped = attention_reference(q, k, v, causal=True)
-    assert float(jnp.abs(ref - ref_uncapped).max()) > 1e-4
-
-
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(causal=True),
-        dict(causal=False),
-        dict(causal=True, logit_softcap=10.0),
-        dict(causal=True, window=128),
-    ],
-    ids=["causal", "noncausal", "softcap", "window"],
-)
-def test_int8_scores_within_quantization_envelope(kw):
-    """Opt-in int8 QK^T (score_dtype='int8'): 2x MXU rate on the score
-    matmul, per-KV-row + tile-scalar-q scales. The reconstruction is
-    exact for the quantized values, so the error budget is pure
-    quantization noise (~1e-2 on the softmax output) — verified here
-    against the fp32 oracle at an opt-in tolerance; bf16 inputs match
-    the production call signature."""
-    q, k, v = make_qkv(jax.random.key(11), 2, 4, 2, 256, 256, 64,
-                       jnp.bfloat16)
-    causal = kw.pop("causal")
-    out = flash_attention_fwd(q, k, v, causal=causal, score_dtype="int8",
-                              block_q=128, block_kv=128, interpret=True,
-                              **kw)
-    ref = attention_reference(q, k, v, causal=causal, **kw)
-    np.testing.assert_allclose(
-        np.asarray(out, np.float32), np.asarray(ref, np.float32),
-        atol=5e-2, rtol=5e-2,
-    )
-    # And the int8 path must stay strictly coarser than the bf16 path
-    # at matched config (i.e. it is actually quantizing, not a no-op).
-    out_bf16 = flash_attention_fwd(q, k, v, causal=causal,
-                                   block_q=128, block_kv=128,
-                                   interpret=True, **kw)
-    assert float(jnp.abs(out.astype(jnp.float32)
-                         - out_bf16.astype(jnp.float32)).max()) > 1e-4
-
-
-def test_int8_scores_cross_seqlen_and_lse():
-    """int8 QK^T composes with bottom-right cross-length geometry and
-    the return_lse side output (backward residual)."""
-    q, k, v = make_qkv(jax.random.key(12), 1, 4, 2, 64, 256, 64,
-                       jnp.bfloat16)
-    out, lse = flash_attention_fwd(q, k, v, causal=True,
-                                   score_dtype="int8", return_lse=True,
-                                   block_q=64, block_kv=128,
-                                   interpret=True)
-    ref = attention_reference(q, k, v, causal=True)
-    assert lse.shape == (1, 4, 64)
-    np.testing.assert_allclose(
-        np.asarray(out, np.float32), np.asarray(ref, np.float32),
-        atol=5e-2, rtol=5e-2,
-    )
-
-
-def test_int8_scores_diag_fast_path_matches_general():
-    """score_dtype='int8' on the DIAG-FIRST fast path (block-aligned
-    bottom-right causal geometry — the headline shape family): must match
-    the fp32 oracle within the quantization envelope AND the general
-    fused kernel's int8 result within summation-order noise."""
-    for sq, skv in [(256, 256), (128, 256)]:
-        q, k, v = make_qkv(jax.random.key(21), 2, 4, 2, sq, skv, 64,
-                           jnp.bfloat16)
-        out_diag = flash_attention_fwd(
-            q, k, v, causal=True, score_dtype="int8",
-            block_q=128, block_kv=128, interpret=True,
-        )  # routes diag-first: offset % block == 0, block_q == block_kv
-        ref = attention_reference(q, k, v, causal=True)
-        np.testing.assert_allclose(
-            np.asarray(out_diag, np.float32), np.asarray(ref, np.float32),
-            atol=5e-2, rtol=5e-2,
-        )
-        # Different block geometry forces the general fused kernel; the
-        # two int8 paths share quantization granularity per KV sub-block,
-        # so agreement is summation-order-level, not envelope-level.
-        out_gen = flash_attention_fwd(
-            q, k, v, causal=True, score_dtype="int8",
-            block_q=128, block_kv=64, interpret=True,
-        )
-        np.testing.assert_allclose(
-            np.asarray(out_diag, np.float32), np.asarray(out_gen, np.float32),
-            atol=2e-2, rtol=2e-2,
-        )
-
-
-def test_int8_scores_rejects_unknown_dtype():
-    q, k, v = make_qkv(jax.random.key(13), 1, 2, 2, 128, 128, 64,
-                       jnp.bfloat16)
-    with pytest.raises(ValueError, match="score_dtype"):
-        flash_attention_fwd(q, k, v, causal=True, score_dtype="int4",
-                            interpret=True)
+    ref_uncapped = attention_reference(q, k, v, causal=causal)
+    assert float(jnp.abs(out - ref_uncapped).max()) > 1e-4
 
 
 def test_inactive_window_normalized_to_fast_path():
-    """A window >= Skv can never bind (the largest global query position
-    is Skv-1), so the wrapper must normalize it to window=None — which
-    both keeps the mask exact and lets short-prompt windowed models
-    (Gemma2/Mistral prompts <= window) ride the diag-first fast path.
-    Bitwise equality with the explicit window=None call proves the same
-    kernel ran."""
+    """A window >= Skv can never bind (the largest query position is
+    Skv-1), so it must give the unwindowed result; window = Skv - 1 does
+    bind (the last row loses key 0)."""
     q, k, v = make_qkv(jax.random.key(37), 2, 8, 2, 512, 512, 64,
                        jnp.float32)
-    out_w = flash_attention_fwd(
-        q, k, v, causal=True, window=512, block_q=256, block_kv=256,
-        interpret=True,
-    )
-    out_none = flash_attention_fwd(
-        q, k, v, causal=True, window=None, block_q=256, block_kv=256,
-        interpret=True,
-    )
-    assert np.array_equal(np.asarray(out_w, np.float32),
-                          np.asarray(out_none, np.float32))
-    ref = attention_reference(q, k, v, causal=True)
-    np.testing.assert_allclose(
-        np.asarray(out_w, np.float32), np.asarray(ref, np.float32),
-        atol=2e-5, rtol=2e-2,
-    )
-    # window = Skv - 1 DOES bind (row 0 of a square causal geometry loses
-    # key 0 only when window < Skv... the last row sees keys
-    # (Skv-1-window, Skv-1]; at window=Skv-1 key 0 drops for it) — the
-    # normalization must NOT fire there.
-    out_bind = flash_attention_fwd(
-        q, k, v, causal=True, window=511, block_q=256, block_kv=256,
-        interpret=True,
-    )
-    assert not np.array_equal(np.asarray(out_bind, np.float32),
-                              np.asarray(out_none, np.float32))
+    out_w = flash_attention_forward(q, k, v, causal=True, window=512)
+    out_none = flash_attention_forward(q, k, v, causal=True)
+    np.testing.assert_array_equal(np.asarray(out_w), np.asarray(out_none))
+    out_bind = flash_attention_forward(q, k, v, causal=True, window=511)
+    assert not np.array_equal(np.asarray(out_bind), np.asarray(out_none))
+
+
+@pytest.mark.parametrize(
+    "causal,window", [(False, None), (True, None), (True, 64)],
+    ids=["full", "causal", "window64"],
+)
+@GROUPS
+def test_cudnn_route_argument_mapping(causal, window, hq, hkv):
+    """The cuDNN route's layout transposes, GQA grouping, causal flag and
+    window translation, run through jax.nn's XLA implementation on the
+    CPU (cuDNN itself only lowers on the card)."""
+    q, k, v = make_qkv(jax.random.key(11), 2, hq, hkv, 192, 192, 64,
+                       jnp.bfloat16)
+    out = cudnn_attention(q, k, v, 64 ** -0.5, causal=causal, window=window,
+                          implementation="xla")
+    ref = attention_reference(q, k, v, causal=causal, window=window)
+    check(out, ref, q.dtype)
+
+
+def _spec(*shape, dtype=jnp.bfloat16):
+    return jax.ShapeDtypeStruct(shape, dtype)
+
+
+_B, _K, _LEN = _spec(1, 4, 128, 64), _spec(1, 2, 128, 64), _spec(1, dtype=jnp.int32)
+
+
+@pytest.mark.parametrize(
+    "q,k,kw,expected",
+    [
+        (_B, _K, dict(causal=True), True),
+        (_B, _K, dict(causal=False), True),
+        (_B, _K, dict(causal=True, window=32), True),
+        (_B, _K, dict(causal=False, window=32), False),
+        (_spec(1, 4, 128, 64, dtype=jnp.float32),
+         _spec(1, 2, 128, 64, dtype=jnp.float32), dict(causal=True), False),
+        (_B, _K, dict(causal=True, logit_softcap=50.0), False),
+        (_B, _K, dict(causal=True, kv_length=_LEN), False),
+        (_B, _K, dict(causal=True, q_offset=_LEN), False),
+        (_spec(1, 4, 64, 64), _K, dict(causal=True), False),
+        (_spec(1, 4, 64, 64), _K, dict(causal=False), True),
+        (_spec(1, 4, 128, 256), _spec(1, 2, 128, 256), dict(causal=True), False),
+    ],
+    ids=["causal", "full", "window", "window-noncausal", "fp32", "softcap",
+         "kv_length", "q_offset", "sq<skv-causal", "sq<skv-full", "d256"],
+)
+def test_cudnn_supports(q, k, kw, expected):
+    """cuDNN takes exactly the calls it expresses with this repo's
+    bottom-right semantics; everything else falls back to XLA."""
+    args = dict(causal=False, kv_length=None, q_offset=None, window=None,
+                logit_softcap=None)
+    args.update(kw)
+    assert cudnn_supports(q, k, **args) is expected
+
+
+@pytest.mark.gpu
+def test_prefill_takes_cudnn_on_gpu(gpu_device):
+    q, k, v = make_qkv(jax.random.key(12), 1, 28, 4, 512, 512, 128,
+                       jnp.bfloat16)
+    f = jax.jit(lambda q, k, v: flash_attention_forward(q, k, v, causal=True))
+    assert "cudnn" in f.lower(q, k, v).compile().as_text()
+    check(f(q, k, v), attention_reference(q, k, v, causal=True), q.dtype)

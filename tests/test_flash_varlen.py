@@ -1,8 +1,9 @@
-"""Varlen (packed ragged batch) kernel vs per-sequence reference loop.
+"""Varlen (packed ragged batch) attention vs per-sequence reference loop.
 
 The reference repo lists varlen as an open TODO (reference: README.md:18);
 the oracle here runs each sequence separately through the fp32 XLA
-reference and re-packs — exactly the semantics a varlen kernel must match.
+reference and re-packs — exactly the semantics the segment-masked route
+must match.
 """
 
 import jax
@@ -10,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.ops.flash_varlen import flash_attention_varlen
-from flash_attention_cute_tpu.ops.reference import attention_reference
+from flash_attention_cute import flash_attention_varlen
+from flash_attention_cute.ops.reference import attention_reference
 
 
 def pack(key, lens_q, lens_kv, hq, hkv, d):
@@ -48,7 +49,6 @@ def test_varlen_equal_lengths(causal):
     q, k, v, cu_q, cu_kv = pack(jax.random.key(0), lens, lens, 4, 2, 64)
     out = flash_attention_varlen(
         q, k, v, cu_q, causal=causal,
-        block_q=128, block_kv=128, interpret=True,
     )
     want = oracle(q, k, v, cu_q, cu_kv, causal)
     np.testing.assert_allclose(
@@ -67,7 +67,6 @@ def test_varlen_cross_lengths_bottom_right():
     )
     out = flash_attention_varlen(
         q, k, v, cu_q, cu_seqlens_kv=cu_kv, causal=True,
-        block_q=128, block_kv=128, interpret=True,
     )
     want = oracle(q, k, v, cu_q, cu_kv, True)
     np.testing.assert_allclose(
@@ -84,7 +83,6 @@ def test_varlen_windowed():
     q, k, v, cu_q, cu_kv = pack(jax.random.key(2), lens, lens, 4, 2, 64)
     out = flash_attention_varlen(
         q, k, v, cu_q, causal=True, window=64,
-        block_q=128, block_kv=128, interpret=True,
     )
     want = oracle(q, k, v, cu_q, cu_kv, True, window=64)
     np.testing.assert_allclose(
@@ -93,28 +91,28 @@ def test_varlen_windowed():
     )
 
 
-def test_varlen_gqa_and_block_invariance():
-    lens = [130, 70, 456]
-    q, k, v, cu_q, _ = pack(jax.random.key(3), lens, lens, 8, 2, 64)
-    o1 = flash_attention_varlen(q, k, v, cu_q, causal=True,
-                                block_q=128, block_kv=128, interpret=True)
-    o2 = flash_attention_varlen(q, k, v, cu_q, causal=True,
-                                block_q=256, block_kv=512, interpret=True)
-    np.testing.assert_allclose(np.asarray(o1), np.asarray(o2),
-                               atol=1e-5, rtol=1e-5)
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (28, 4), (8, 1)],
+                         ids=["mha", "gqa4", "gqa7", "mqa8"])
+def test_varlen_gqa_groups(hq, hkv):
+    lens = [130, 70, 56]
+    q, k, v, cu_q, cu_kv = pack(jax.random.key(3), lens, lens, hq, hkv, 32)
+    out = flash_attention_varlen(q, k, v, cu_q, causal=True)
+    want = oracle(q, k, v, cu_q, cu_kv, True)
+    np.testing.assert_allclose(
+        np.asarray(out, np.float32), np.asarray(want, np.float32),
+        atol=2e-5, rtol=2e-2,
+    )
 
 
 def test_varlen_single_sequence_equals_dense():
-    from flash_attention_cute_tpu.ops.flash_fwd import flash_attention_fwd
+    from flash_attention_cute import flash_attention_forward
 
     s, h, d = 256, 4, 64
     q, k, v, cu_q, _ = pack(jax.random.key(4), [s], [s], h, h, d)
-    out = flash_attention_varlen(q, k, v, cu_q, causal=True,
-                                 block_q=128, block_kv=128, interpret=True)
-    want = flash_attention_fwd(
+    out = flash_attention_varlen(q, k, v, cu_q, causal=True)
+    want = flash_attention_forward(
         jnp.swapaxes(q, 0, 1)[None], jnp.swapaxes(k, 0, 1)[None],
         jnp.swapaxes(v, 0, 1)[None], causal=True,
-        block_q=128, block_kv=128, interpret=True,
     )
     np.testing.assert_allclose(
         np.asarray(out), np.asarray(jnp.swapaxes(want[0], 0, 1)),
@@ -122,33 +120,32 @@ def test_varlen_single_sequence_equals_dense():
     )
 
 
-def test_varlen_banded_max_seqlen():
-    """Band-limited kv grid (max_seqlen set) must not change numerics."""
-    lens = [100, 37, 256, 1, 190]
-    q, k, v, cu_q, cu_kv = pack(jax.random.key(5), lens, lens, 4, 2, 64)
-    o1 = flash_attention_varlen(q, k, v, cu_q, causal=True,
-                                block_q=128, block_kv=128, interpret=True)
-    o2 = flash_attention_varlen(q, k, v, cu_q, causal=True, max_seqlen=256,
-                                block_q=128, block_kv=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(o1), np.asarray(o2),
-                               atol=1e-5, rtol=1e-5)
+def test_varlen_padding_tokens_emit_zeros():
+    """Packed buffers padded past cu_seqlens[-1]: the padding rows attend
+    nothing (zeros) and do not leak into real sequences."""
+    lens = [50, 30]
+    q, k, v, cu_q, cu_kv = pack(jax.random.key(5), lens + [20], lens + [20],
+                                4, 2, 32)
+    cu = cu_q[:-1]
+    out = flash_attention_varlen(q, k, v, cu, causal=True)
+    np.testing.assert_array_equal(np.asarray(out[80:]), 0.0)
+    want = oracle(q[:80], k[:80], v[:80], cu, cu, True)
+    np.testing.assert_allclose(
+        np.asarray(out[:80], np.float32), np.asarray(want, np.float32),
+        atol=2e-5, rtol=2e-2,
+    )
 
 
 def test_varlen_banded_unequal_lengths():
-    """Regression (round-1 advisor, high): with cu_seqlens_kv != cu_seqlens_q
-    (kv longer than q — chunked-prefill packing), one q block spans many
-    segments whose combined kv extent is unbounded by max_seqlen + block_q.
-    The band must therefore not apply (max_seqlen is only a hint for equal
-    packing); previously trailing kv blocks were silently never visited
-    (max error 0.52)."""
+    """cu_seqlens_kv != cu_seqlens_q (kv longer than q — chunked-prefill
+    packing): each q token sees its own sequence's whole kv prefix."""
     lens_q = [16] * 8
     lens_kv = [256] * 8
     q, k, v, cu_q, cu_kv = pack(
         jax.random.key(7), lens_q, lens_kv, 4, 2, 64
     )
     out = flash_attention_varlen(
-        q, k, v, cu_q, cu_seqlens_kv=cu_kv, causal=True, max_seqlen=256,
-        block_q=128, block_kv=128, interpret=True,
+        q, k, v, cu_q, cu_seqlens_kv=cu_kv, causal=True,
     )
     want = oracle(q, k, v, cu_q, cu_kv, True)
     np.testing.assert_allclose(
@@ -157,51 +154,24 @@ def test_varlen_banded_unequal_lengths():
     )
 
 
-def test_varlen_lazy_max_large_scores():
-    """Anchored-lazy envelope: exact at activation-scale magnitudes (x4,
-    like test_lazy_max_matches_strict in test_flash_fwd.py); beyond the
-    envelope stable='strict' stays exact and is the documented escape."""
+def test_varlen_large_scores():
+    """Activation-scale score magnitudes stay exact vs the oracle."""
     lens = [100, 37, 256, 90]
     q, k, v = pack(jax.random.key(8), lens, lens, 4, 2, 64)[:3]
     cu = jnp.asarray(np.concatenate([[0], np.cumsum(lens)]), jnp.int32)
-
-    out = flash_attention_varlen(
-        q * 4.0, k * 4.0, v, cu, causal=True, block_q=128, block_kv=128,
-        interpret=True,
-    )
-    want = oracle(q * 4.0, k * 4.0, v, cu, cu, True)
+    out = flash_attention_varlen(q * 6.0, k * 6.0, v, cu, causal=True)
+    want = oracle(q * 6.0, k * 6.0, v, cu, cu, True)
     np.testing.assert_allclose(
         np.asarray(out, np.float32), np.asarray(want, np.float32),
         atol=2e-4, rtol=2e-2,
     )
-
-    # x6 (scores far outside any trained model): strict stays exact...
-    out_s = flash_attention_varlen(
-        q * 6.0, k * 6.0, v, cu, causal=True, stable="strict",
-        block_q=128, block_kv=128, interpret=True,
-    )
-    want6 = oracle(q * 6.0, k * 6.0, v, cu, cu, True)
-    np.testing.assert_allclose(
-        np.asarray(out_s, np.float32), np.asarray(want6, np.float32),
-        atol=2e-4, rtol=2e-2,
-    )
-    # ...and the lazy default saturates GRACEFULLY (finite, bounded by the
-    # convex hull of V — never NaN/inf).
-    out_l = flash_attention_varlen(
-        q * 6.0, k * 6.0, v, cu, causal=True, block_q=128, block_kv=128,
-        interpret=True,
-    )
-    a = np.asarray(out_l, np.float32)
-    assert np.all(np.isfinite(a))
-    assert np.abs(a).max() <= np.abs(np.asarray(v)).max() + 1e-3
 
 
 def test_varlen_logit_softcap():
     lens = [90, 40]
     q, k, v, cu_q, cu_kv = pack(jax.random.key(6), lens, lens, 4, 2, 64)
     out = flash_attention_varlen(q, k, v, cu_q, causal=True,
-                                 logit_softcap=20.0,
-                                 block_q=128, block_kv=128, interpret=True)
+                                 logit_softcap=20.0)
     want = []
     for i in range(2):
         a, b = int(cu_q[i]), int(cu_q[i + 1])

@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import forward, init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.models.fuse import fuse_projections, is_fused
-from flash_attention_cute_tpu.models.quantize import (
+from flash_attention_cute.models import forward, init_params
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.models.fuse import fuse_projections, is_fused
+from flash_attention_cute.models.quantize import (
     dequantize_params,
     quantize_params,
 )
@@ -34,7 +34,7 @@ def test_fused_forward_matches_unfused():
 
 
 def test_fused_decode_matches_unfused():
-    from flash_attention_cute_tpu.models.cache import KVCache
+    from flash_attention_cute.models.cache import KVCache
 
     cfg = tiny_test_config(num_layers=2)
     params = init_params(cfg, jax.random.key(0))
@@ -75,7 +75,7 @@ def test_fuse_then_quantize_equals_columnwise_quantize(bits):
     """Per-channel (int8) and per-(K-group, channel) (int4) scales are
     invariant under output-axis concat: quantizing the fused weight must
     yield exactly the unfused weights' integer columns and scales."""
-    from flash_attention_cute_tpu.ops.quantized_matmul import (
+    from flash_attention_cute.ops.quantized_matmul import (
         quantize_weight,
         quantize_weight_int4,
     )
@@ -113,7 +113,7 @@ def test_fused_quantized_forward_matches_dequant_oracle(bits):
 
 
 def test_fused_lora_matches_unfused_lora():
-    from flash_attention_cute_tpu.models.lora import init_lora_params
+    from flash_attention_cute.models.lora import init_lora_params
 
     cfg = tiny_test_config(num_layers=2)
     params = init_params(cfg, jax.random.key(0))
@@ -136,7 +136,7 @@ def test_fused_lora_matches_unfused_lora():
 
 
 def test_fused_serving_engine_token_parity():
-    from flash_attention_cute_tpu.runtime.engine import ServingEngine
+    from flash_attention_cute.runtime.engine import ServingEngine
 
     cfg = tiny_test_config(num_layers=2)
     params = init_params(cfg, jax.random.key(0))
@@ -159,7 +159,7 @@ def test_fused_serving_engine_token_parity():
 
 
 def test_fused_rejected_on_mesh():
-    from flash_attention_cute_tpu.parallel.sharding import param_pspecs
+    from flash_attention_cute.parallel.sharding import param_pspecs
 
     cfg = tiny_test_config(num_layers=1)
     fp = fuse_projections(init_params(cfg, jax.random.key(0)))

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.api import flash_attention_forward
-from flash_attention_cute_tpu.ops.reference import attention_reference
+from flash_attention_cute.api import flash_attention_forward
+from flash_attention_cute.ops.reference import attention_reference
 
 RNG = np.random.default_rng(20260816)
 

@@ -8,10 +8,10 @@ import jax
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.runtime.engine import ServingEngine
-from flash_attention_cute_tpu.runtime.spec_engine import (
+from flash_attention_cute.models import init_params
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.runtime.engine import ServingEngine
+from flash_attention_cute.runtime.spec_engine import (
     SpeculativeServingEngine,
 )
 
@@ -104,7 +104,7 @@ def test_stop_sequences_truncate(model, engine):
 
 
 def test_guided_sampled_engine_runs(model):
-    from flash_attention_cute_tpu.runtime.sampling import SamplingParams
+    from flash_attention_cute.runtime.sampling import SamplingParams
 
     cfg, params = model
     prompt = _prompt(cfg, seed=9)
@@ -134,7 +134,7 @@ def test_dfa_constrained_decoding_matches_slow_reference(model):
     masks; chunk boundaries recompute the state correctly."""
     import jax.numpy as jnp
 
-    from flash_attention_cute_tpu.models import forward
+    from flash_attention_cute.models import forward
 
     cfg, params = model
     dfa = _parity_dfa(cfg.vocab_size)

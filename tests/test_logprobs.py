@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import forward, init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.runtime.engine import ServingEngine
+from flash_attention_cute.models import forward, init_params
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.runtime.engine import ServingEngine
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +65,7 @@ def test_engine_sampled_logprobs_are_sampling_distribution(model):
     """Sampled logprobs are from the filtered distribution: finite,
     <= 0, deterministic across identical runs, and at most the max
     filtered probability."""
-    from flash_attention_cute_tpu.runtime.sampling import SamplingParams
+    from flash_attention_cute.runtime.sampling import SamplingParams
 
     cfg, params = model
     rng = np.random.default_rng(21)
@@ -93,7 +93,7 @@ def test_spec_engine_logprobs_match_plain(model):
     """Greedy speculative logprobs (target verify logits at the accepted
     tokens) must match the plain engine's decode-path logprobs (same
     math, different kernels -> small numeric tolerance)."""
-    from flash_attention_cute_tpu.runtime.spec_engine import (
+    from flash_attention_cute.runtime.spec_engine import (
         SpeculativeServingEngine,
     )
 
@@ -127,7 +127,7 @@ def test_spec_engine_logprobs_match_plain(model):
 
 
 def test_lookup_engine_logprobs_match_plain(model):
-    from flash_attention_cute_tpu.runtime.spec_engine import (
+    from flash_attention_cute.runtime.spec_engine import (
         SpeculativeServingEngine,
     )
 

@@ -11,14 +11,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.models.lora import (
+from flash_attention_cute.models import init_params
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.models.lora import (
     init_lora_params,
     lora_delta,
     merge_lora,
 )
-from flash_attention_cute_tpu.runtime.engine import ServingEngine
+from flash_attention_cute.runtime.engine import ServingEngine
 
 POOL = dict(slots=3, num_pages=65, page_size=8, pages_per_seq=16)
 
@@ -145,7 +145,7 @@ def test_lora_speculative_serving(setup):
     """LoRA x speculative: adapters ride the verify forward (drafts stay
     base-model — proposals only affect speed), so outputs must match the
     plain LoRA engine exactly, per concurrent adapter."""
-    from flash_attention_cute_tpu.runtime.spec_engine import (
+    from flash_attention_cute.runtime.spec_engine import (
         SpeculativeServingEngine,
     )
 
@@ -174,7 +174,7 @@ def test_lora_speculative_serving(setup):
 def test_peft_conversion_roundtrip(setup):
     """A synthetic PEFT-style state dict converts into the stacked layout
     and serves identically to the same adapter built directly."""
-    from flash_attention_cute_tpu.models.lora import lora_params_from_peft
+    from flash_attention_cute.models.lora import lora_params_from_peft
 
     cfg, params, lora = setup
     rng = np.random.default_rng(7)
@@ -212,7 +212,7 @@ def test_peft_conversion_roundtrip(setup):
 
 def test_lora_dense_forward_matches_merged(setup):
     """Dense-path LoRA (prefill) equals the merged-weights forward."""
-    from flash_attention_cute_tpu.models import forward
+    from flash_attention_cute.models import forward
 
     cfg, params, lora = setup
     ids = jnp.asarray(
@@ -238,7 +238,7 @@ def test_lora_finetuning_step_trains_adapter_only(setup):
     weights never change."""
     import optax
 
-    from flash_attention_cute_tpu.models import forward
+    from flash_attention_cute.models import forward
 
     cfg, params, lora = setup
     rng = np.random.default_rng(17)
@@ -246,10 +246,8 @@ def test_lora_finetuning_step_trains_adapter_only(setup):
     aid = jnp.ones((4,), jnp.int32)  # all rows train adapter 1
 
     def loss_fn(lora_p):
-        # interpret=None -> the XLA-reference attention off-TPU (fast for
-        # this CPU test); the kernel path differentiates too — the api
-        # routes dense prefill through the custom-VJP op (see
-        # tests/test_autodiff.py::test_model_forward_differentiable...).
+        # The CPU's XLA attention route; jax.grad differentiates every
+        # dense route (tests/test_autodiff.py).
         logits, _ = forward(params, cfg, ids, mode="prefill",
                             lora=lora_p, adapter_ids=aid)
         lp = jax.nn.log_softmax(logits[:, :-1], axis=-1)

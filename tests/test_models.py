@@ -11,15 +11,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import (
+from flash_attention_cute.models import (
     KVCache,
     forward,
     init_params,
     llama_config_from_hf,
     qwen2_config_from_hf,
 )
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.models.convert import params_from_state_dict
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.models.convert import params_from_state_dict
 
 transformers = pytest.importorskip("transformers")
 torch = pytest.importorskip("torch")
@@ -198,10 +198,10 @@ def test_llama3_rope_scaling_parity_with_hf():
 @pytest.mark.parametrize("family", ["llama", "qwen2"])
 @pytest.mark.parametrize("padded", [False, True], ids=["nopad", "padded"])
 def test_sequence_classification_parity_with_hf(family, padded):
-    from flash_attention_cute_tpu.models.convert import (
+    from flash_attention_cute.models.convert import (
         head_params_from_state_dict,
     )
-    from flash_attention_cute_tpu.models.heads import (
+    from flash_attention_cute.models.heads import (
         sequence_classification_forward,
     )
 
@@ -243,10 +243,10 @@ def test_sequence_classification_parity_with_hf(family, padded):
 
 
 def test_question_answering_parity_with_hf():
-    from flash_attention_cute_tpu.models.convert import (
+    from flash_attention_cute.models.convert import (
         head_params_from_state_dict,
     )
-    from flash_attention_cute_tpu.models.heads import (
+    from flash_attention_cute.models.heads import (
         question_answering_forward,
     )
 
@@ -274,10 +274,10 @@ def test_question_answering_parity_with_hf():
 
 
 def test_token_classification_parity_with_hf():
-    from flash_attention_cute_tpu.models.convert import (
+    from flash_attention_cute.models.convert import (
         head_params_from_state_dict,
     )
-    from flash_attention_cute_tpu.models.heads import (
+    from flash_attention_cute.models.heads import (
         token_classification_forward,
     )
 
@@ -307,9 +307,9 @@ def test_embedding_pooling_semantics(pooling):
     """Embedding pooling (beyond the reference): each recipe must equal a
     straight numpy pooling of the SAME trunk hidden states, with right-pad
     masking and L2 normalization."""
-    from flash_attention_cute_tpu.models import forward, init_params
-    from flash_attention_cute_tpu.models.config import tiny_test_config
-    from flash_attention_cute_tpu.models.heads import (
+    from flash_attention_cute.models import forward, init_params
+    from flash_attention_cute.models.config import tiny_test_config
+    from flash_attention_cute.models.heads import (
         embedding_pooling_forward,
     )
 
@@ -377,8 +377,8 @@ def tiny_hf_gemma2(window=8):
 
 
 def test_gemma2_logits_parity_with_hf():
-    from flash_attention_cute_tpu.models import forward
-    from flash_attention_cute_tpu.models.gemma2 import gemma2_config_from_hf
+    from flash_attention_cute.models import forward
+    from flash_attention_cute.models.gemma2 import gemma2_config_from_hf
 
     hf_cfg, model = tiny_hf_gemma2()
     cfg = gemma2_config_from_hf(hf_cfg, dtype=jnp.float32)
@@ -401,8 +401,8 @@ def test_gemma2_prefill_decode_matches_full_forward():
     """Cached decode through the ALTERNATING-window carry scan must match
     a fresh full prefill at every step (exercises the periodic pattern in
     the stacked-cache path)."""
-    from flash_attention_cute_tpu.models import KVCache, forward
-    from flash_attention_cute_tpu.models.gemma2 import gemma2_config_from_hf
+    from flash_attention_cute.models import KVCache, forward
+    from flash_attention_cute.models.gemma2 import gemma2_config_from_hf
 
     hf_cfg, model = tiny_hf_gemma2()
     cfg = gemma2_config_from_hf(hf_cfg, dtype=jnp.float32)
@@ -437,9 +437,9 @@ def test_gemma2_serving_engine_exact():
     """Gemma2 through the PAGED serving path (alternating windows +
     softcaps + scaled embeddings in forward_paged) must match dense
     greedy generation."""
-    from flash_attention_cute_tpu.models import forward
-    from flash_attention_cute_tpu.models.gemma2 import gemma2_config_from_hf
-    from flash_attention_cute_tpu.runtime.engine import ServingEngine
+    from flash_attention_cute.models import forward
+    from flash_attention_cute.models.gemma2 import gemma2_config_from_hf
+    from flash_attention_cute.runtime.engine import ServingEngine
 
     hf_cfg, model = tiny_hf_gemma2()
     cfg = gemma2_config_from_hf(hf_cfg, dtype=jnp.float32)
@@ -476,8 +476,8 @@ def test_mistral_logits_parity_with_hf():
     """Mistral (fourth family): Llama + uniform sliding window — logits
     parity vs transformers, window long AND short relative to the
     sequence."""
-    from flash_attention_cute_tpu.models import forward
-    from flash_attention_cute_tpu.models.mistral import (
+    from flash_attention_cute.models import forward
+    from flash_attention_cute.models.mistral import (
         mistral_config_from_hf,
     )
 

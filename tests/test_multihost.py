@@ -1,6 +1,6 @@
 """Multi-host serving router over real worker processes.
 
-The scale-out claim ("request routing across hosts over DCN, per-host
+The scale-out claim ("request routing across worker processes, per-worker
 page pools") is exercised for real here: two SEPARATE Python processes
 each serve a ServingEngine over TCP, and the router in this process
 drives them interleaved. Exactness contract: routing must never change
@@ -16,10 +16,10 @@ import jax
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.runtime.engine import ServingEngine
-from flash_attention_cute_tpu.runtime.multihost import (
+from flash_attention_cute.models import init_params
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.runtime.engine import ServingEngine
+from flash_attention_cute.runtime.multihost import (
     MultiHostRouter,
     stable_block_hash,
 )
@@ -64,8 +64,8 @@ def _spawn_worker(seed=0):
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.Popen(
         [sys.executable, "-m",
-         "flash_attention_cute_tpu.runtime.multihost",
-         "--cpu", "--interpret", "--tiny-layers", "2",
+         "flash_attention_cute.runtime.multihost",
+         "--cpu", "--tiny-layers", "2",
          "--tiny-seed", str(seed), "--port", "0", "--prefix-cache",
          "--host-swap-tokens", "512", *POOL],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, env=env,
@@ -91,7 +91,7 @@ def test_multihost_router_two_processes():
     prompts[201] = rng.integers(0, cfg.vocab_size, 7).tolist()
 
     # Local oracle: one engine, same tiny model (seed 0), same pool.
-    oracle = ServingEngine(params, cfg, interpret=True, slots=2,
+    oracle = ServingEngine(params, cfg, slots=2,
                            num_pages=65, page_size=8, pages_per_seq=16)
     for rid, p in prompts.items():
         oracle.submit(rid, p, 5)

@@ -10,9 +10,9 @@ directly.
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.runtime.paged_cache import PageAllocator
+from flash_attention_cute.runtime.paged_cache import PageAllocator
 
-native = pytest.importorskip("flash_attention_cute_tpu.runtime.native")
+native = pytest.importorskip("flash_attention_cute.runtime.native")
 
 if native.load() is None:
     pytest.skip("native library unavailable", allow_module_level=True)
@@ -117,7 +117,7 @@ def test_scheduler_lockstep_with_python():
     """Random-driven parity: the C++ scheduler and the Python fallback
     must make IDENTICAL decisions (admission, step results, preemption
     victims, slot assignments) for the same request stream."""
-    from flash_attention_cute_tpu.runtime.engine import _PyScheduler
+    from flash_attention_cute.runtime.engine import _PyScheduler
 
     def mk():
         return (
@@ -191,7 +191,7 @@ def test_scheduler_lockstep_with_prefix_grants():
     """Random-driven parity including the prefix-cache operations: grants
     consumed at admission, shared pages refcounted identically, pins and
     evictions keeping both backends' free lists in lockstep."""
-    from flash_attention_cute_tpu.runtime.engine import _PyScheduler
+    from flash_attention_cute.runtime.engine import _PyScheduler
 
     cc = native.NativeScheduler(14, 4, 8, slots=3)
     py = _PyScheduler(14, 4, 8, slots=3)
@@ -267,7 +267,7 @@ def test_priority_scheduling_lockstep_and_semantics():
     """Priority classes: admission picks highest-priority-then-FIFO,
     preemption evicts lowest-priority-then-youngest — identically in
     both backends."""
-    from flash_attention_cute_tpu.runtime.engine import _PyScheduler
+    from flash_attention_cute.runtime.engine import _PyScheduler
 
     for mk in (lambda: native.NativeScheduler(32, 4, 8, slots=2),
                lambda: _PyScheduler(32, 4, 8, slots=2)):

@@ -11,16 +11,16 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from flash_attention_cute_tpu.models import KVCache, forward, init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.parallel import (
+from flash_attention_cute.models import KVCache, forward, init_params
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.parallel import (
     make_mesh,
     param_pspecs,
     shard_cache,
     shard_params,
     sharded_attention,
 )
-from flash_attention_cute_tpu.ops.reference import attention_reference
+from flash_attention_cute.ops.reference import attention_reference
 
 
 @pytest.fixture(scope="module")
@@ -101,8 +101,8 @@ def test_param_pspecs_cover_tree(cfg):
 def test_speculative_generate_under_mesh(cfg, mesh8):
     """Speculative decoding composes with tensor/data sharding: sharded
     params + sharded caches, one jitted loop, exact vs unsharded greedy."""
-    from flash_attention_cute_tpu.runtime.generate import greedy_generate
-    from flash_attention_cute_tpu.runtime.speculative import (
+    from flash_attention_cute.runtime.generate import greedy_generate
+    from flash_attention_cute.runtime.speculative import (
         speculative_generate,
     )
 

@@ -16,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import forward, init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.runtime.engine import ServingEngine
-from flash_attention_cute_tpu.runtime.sampling import apply_penalties
+from flash_attention_cute.models import forward, init_params
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.runtime.engine import ServingEngine
+from flash_attention_cute.runtime.sampling import apply_penalties
 
 
 @pytest.fixture(scope="module")
@@ -209,7 +209,7 @@ def test_spec_engine_penalties_match_plain(model, draft):
     """Greedy speculative serving under penalties is bit-exact vs the
     penalized plain engine for ANY draft: the verify penalizes position i
     with the entry counts advanced by draft tokens d_1..d_i."""
-    from flash_attention_cute_tpu.runtime.spec_engine import (
+    from flash_attention_cute.runtime.spec_engine import (
         SpeculativeServingEngine,
     )
 
@@ -241,7 +241,7 @@ def test_spec_engine_penalties_match_plain(model, draft):
 def test_lookup_engine_penalties_match_plain(model):
     """Prompt-lookup (ngram) speculative serving under penalties matches
     the penalized plain engine too (one-hot proposals; penalized verify)."""
-    from flash_attention_cute_tpu.runtime.spec_engine import (
+    from flash_attention_cute.runtime.spec_engine import (
         SpeculativeServingEngine,
     )
 
@@ -274,8 +274,8 @@ def test_spec_engine_sampled_penalties_deterministic(model, draft):
     """Rejection-sampling speculative serving with penalties: same seed =>
     identical streams (penalized target distributions are deterministic
     functions of the emitted history)."""
-    from flash_attention_cute_tpu.runtime.sampling import SamplingParams
-    from flash_attention_cute_tpu.runtime.spec_engine import (
+    from flash_attention_cute.runtime.sampling import SamplingParams
+    from flash_attention_cute.runtime.spec_engine import (
         SpeculativeServingEngine,
     )
 

@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.runtime.engine import ServingEngine
+from flash_attention_cute.models import init_params
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.runtime.engine import ServingEngine
 
 POOL = dict(slots=2, num_pages=65, page_size=8, pages_per_seq=16)
 
@@ -153,7 +153,7 @@ def test_prefix_cache_speculative_engine(model):
     """Speculative serving over cached prefixes: the draft pool rides the
     same shared pages (its KV was mirrored at first admission), outputs
     stay exact vs the plain engine."""
-    from flash_attention_cute_tpu.runtime.spec_engine import (
+    from flash_attention_cute.runtime.spec_engine import (
         SpeculativeServingEngine,
     )
 
@@ -189,7 +189,7 @@ def test_prefix_cache_helps_preemption_recompute(model):
 
 
 def test_host_swap_tier_lru_unit():
-    from flash_attention_cute_tpu.runtime.prefix_cache import HostSwapTier
+    from flash_attention_cute.runtime.prefix_cache import HostSwapTier
 
     t = HostSwapTier(capacity_tokens=24, page_size=8)  # 3 entries
     for i in range(5):
@@ -284,7 +284,7 @@ class _FakeSched:
 
 
 def test_partial_lookup_divergence_unit():
-    from flash_attention_cute_tpu.runtime.prefix_cache import PrefixCache
+    from flash_attention_cute.runtime.prefix_cache import PrefixCache
 
     pc = PrefixCache(_FakeSched(), page_size=8)
     prompt_a = list(range(21))  # 2 full blocks + tail rows (16..19)
@@ -343,7 +343,7 @@ def test_partial_page_sharing_quantized_pool(model):
 def test_partial_page_sharing_speculative_engine(model):
     """The draft pool receives the same tail-row clone (same page ids),
     so speculative verify stays exact over mid-page shared prefixes."""
-    from flash_attention_cute_tpu.runtime.spec_engine import (
+    from flash_attention_cute.runtime.spec_engine import (
         SpeculativeServingEngine,
     )
 

@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.models.transformer import init_params
-from flash_attention_cute_tpu.runtime.generate import greedy_generate
-from flash_attention_cute_tpu.runtime.prompt_lookup import (
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.models.transformer import init_params
+from flash_attention_cute.runtime.generate import greedy_generate
+from flash_attention_cute.runtime.prompt_lookup import (
     ngram_propose,
     prompt_lookup_generate,
 )
@@ -81,7 +81,7 @@ def test_prompt_lookup_repetitive_prompt_still_exact(target):
 
 
 def test_prompt_lookup_sampled_deterministic_low_temp(target):
-    from flash_attention_cute_tpu.runtime.sampling import SamplingParams
+    from flash_attention_cute.runtime.sampling import SamplingParams
 
     cfg, params = target
     ids = jax.random.randint(jax.random.key(11), (2, 10), 0, 64)

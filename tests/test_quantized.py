@@ -1,8 +1,9 @@
-"""Quantized-KV decode kernel: quantization roundtrip + attention accuracy.
+"""Quantized KV storage: quantization roundtrip, scale layout, and
+attention over dequantized caches.
 
-Accuracy oracle is the fp32 reference over the *dequantized* cache (exact
-check of the fused-scale math), plus a looser check against the unquantized
-cache (quantization error budget).
+Attention over a quantized cache is checked against the fp32 reference
+over the *dequantized* cache (exact math), plus a looser check against the
+unquantized cache (quantization error budget).
 """
 
 import jax
@@ -10,13 +11,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.ops.quantized import (
-    QuantizedKV,
+from flash_attention_cute import flash_attention_forward
+from flash_attention_cute.ops.quantized import (
+    FP8_E4M3_MAX,
+    INT8_MAX,
     dequantize_kv,
-    flash_attention_decode_quantized,
     quantize_kv,
 )
-from flash_attention_cute_tpu.ops.reference import attention_reference
+from flash_attention_cute.ops.reference import attention_reference
+
+QDTYPES = pytest.mark.parametrize("qdtype", [jnp.int8, jnp.float8_e4m3fn],
+                                  ids=["int8", "fp8"])
 
 
 def make(key, b, hq, hkv, skv, d, dtype=jnp.float32):
@@ -27,8 +32,7 @@ def make(key, b, hq, hkv, skv, d, dtype=jnp.float32):
     return q, kk, vv
 
 
-@pytest.mark.parametrize("qdtype", [jnp.int8, jnp.float8_e4m3fn],
-                         ids=["int8", "fp8"])
+@QDTYPES
 def test_quantize_roundtrip(qdtype):
     x = jax.random.normal(jax.random.key(0), (2, 4, 64, 32)) * 3.0
     qt = quantize_kv(x, qdtype)
@@ -49,16 +53,41 @@ def test_quantize_zero_row_safe():
     np.testing.assert_array_equal(np.asarray(dequantize_kv(qt)), 0.0)
 
 
-@pytest.mark.parametrize("qdtype", [jnp.int8, jnp.float8_e4m3fn],
-                         ids=["int8", "fp8"])
+@QDTYPES
+def test_scales_are_per_token(qdtype):
+    """One f32 scale per cached token ([..., S]), the layout the paged
+    kernel folds into its score and probability tiles."""
+    x = jax.random.normal(jax.random.key(1), (3, 2, 40, 16))
+    qt = quantize_kv(x, qdtype)
+    assert qt.values.shape == x.shape
+    assert qt.scales.shape == x.shape[:-1] and qt.scales.dtype == jnp.float32
+
+
+@QDTYPES
+def test_values_stay_in_range(qdtype):
+    """Each token's absmax maps onto the format's largest value."""
+    x = jax.random.normal(jax.random.key(2), (2, 64, 32)) * 100.0
+    qt = quantize_kv(x, qdtype)
+    v = np.abs(np.asarray(qt.values, np.float32))
+    top = INT8_MAX if qdtype == jnp.int8 else FP8_E4M3_MAX
+    assert v.max() <= top
+    np.testing.assert_allclose(v.max(axis=-1), top, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+def test_dequantize_dtype(dtype):
+    qt = quantize_kv(jax.random.normal(jax.random.key(3), (4, 8, 16)))
+    assert dequantize_kv(qt, dtype).dtype == dtype
+
+
+@QDTYPES
 def test_quant_decode_matches_dequant_reference(qdtype):
-    """Fused-scale kernel == reference run on explicitly dequantized KV."""
+    """Decode over a dequantized cache == the oracle over the same values."""
     q, kk, vv = make(jax.random.key(1), 2, 8, 2, 512, 64)
     kq, vq = quantize_kv(kk, qdtype), quantize_kv(vv, qdtype)
     lens = jnp.array([300, 512], jnp.int32)
-
-    got = flash_attention_decode_quantized(
-        q, kq, vq, kv_length=lens, block_kv=128, interpret=True
+    got = flash_attention_forward(
+        q, dequantize_kv(kq), dequantize_kv(vq), kv_length=lens
     )
     want = attention_reference(
         q, dequantize_kv(kq), dequantize_kv(vq), kv_length=lens
@@ -72,59 +101,8 @@ def test_quant_decode_close_to_fp32():
     """End-to-end quantization error stays small vs the unquantized cache."""
     q, kk, vv = make(jax.random.key(2), 1, 8, 2, 1024, 128)
     kq, vq = quantize_kv(kk), quantize_kv(vv)
-    got = flash_attention_decode_quantized(q, kq, vq, block_kv=256, interpret=True)
+    got = flash_attention_forward(q, dequantize_kv(kq), dequantize_kv(vq))
     want = attention_reference(q, kk, vv)
     np.testing.assert_allclose(
         np.asarray(got), np.asarray(want), atol=5e-2, rtol=5e-2
-    )
-
-
-def test_split_invariance():
-    q, kk, vv = make(jax.random.key(3), 1, 8, 2, 1024, 64)
-    kq, vq = quantize_kv(kk), quantize_kv(vv)
-    o1 = flash_attention_decode_quantized(q, kq, vq, num_splits=1,
-                                          block_kv=128, interpret=True)
-    o4 = flash_attention_decode_quantized(q, kq, vq, num_splits=4,
-                                          block_kv=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(o1), np.asarray(o4), atol=1e-5,
-                               rtol=1e-5)
-
-
-def test_stacked_layer_matches_sliced():
-    """The stacked-cache form (layer scalar-prefetch) must equal slicing the
-    layer out host-side — the form the scan-over-layers decode hot path uses
-    to avoid a per-layer slab copy (models/transformer.py decode branch)."""
-    nl, b, hq, hkv, skv, d = 3, 2, 8, 2, 384, 64
-    ks = jax.random.split(jax.random.key(5), 3)
-    q = jax.random.normal(ks[0], (b, hq, 1, d), jnp.float32)
-    kk = jax.random.normal(ks[1], (nl, b, hkv, skv, d), jnp.float32)
-    vv = jax.random.normal(ks[2], (nl, b, hkv, skv, d), jnp.float32)
-    kq, vq = quantize_kv(kk), quantize_kv(vv)
-    lens = jnp.array([200, 384], jnp.int32)
-    for layer in range(nl):
-        got = flash_attention_decode_quantized(
-            q, kq, vq, kv_length=lens, layer=jnp.int32(layer),
-            block_kv=128, interpret=True,
-        )
-        want = flash_attention_decode_quantized(
-            q,
-            QuantizedKV(values=kq.values[layer], scales=kq.scales[layer]),
-            QuantizedKV(values=vq.values[layer], scales=vq.scales[layer]),
-            kv_length=lens, block_kv=128, interpret=True,
-        )
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), atol=1e-6, rtol=1e-6
-        )
-
-
-def test_bf16_query():
-    q, kk, vv = make(jax.random.key(4), 2, 8, 2, 256, 64, dtype=jnp.bfloat16)
-    kq, vq = quantize_kv(kk), quantize_kv(vv)
-    got = flash_attention_decode_quantized(q, kq, vq, block_kv=128, interpret=True)
-    want = attention_reference(
-        q, dequantize_kv(kq, jnp.bfloat16), dequantize_kv(vq, jnp.bfloat16)
-    )
-    np.testing.assert_allclose(
-        np.asarray(got, np.float32), np.asarray(want, np.float32),
-        atol=3e-2, rtol=3e-2,
     )

@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import forward, init_params
-from flash_attention_cute_tpu.models.cache import KVCache, QuantizedKVCache
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.runtime.generate import greedy_generate, prefill
+from flash_attention_cute.models import forward, init_params
+from flash_attention_cute.models.cache import KVCache, QuantizedKVCache
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.runtime.generate import greedy_generate, prefill
 
 
 @pytest.fixture(scope="module")

@@ -1,17 +1,18 @@
-"""Quantized paged attention vs gathered-dequantized dense oracle."""
+"""Quantized (int8 / fp8) paged attention vs the gathered-dequantized
+dense oracle. Decode runs on both routes: the Triton kernel on the Pallas
+interpreter (scales folded into its tiles) and the gather + dense route."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.ops.quantized import (
-    QuantizedKV,
-    paged_attention_decode_quantized,
-    paged_attention_extend_quantized,
-    quantize_kv,
+from flash_attention_cute.ops.paged_attention import (
+    paged_attention_decode,
+    paged_attention_extend,
 )
-from flash_attention_cute_tpu.ops.reference import attention_reference
+from flash_attention_cute.ops.quantized import QuantizedKV, quantize_kv
+from flash_attention_cute.ops.reference import attention_reference
 
 
 def setup(key, b, hq, hkv, pages_per_seq, page_size, d, qdtype=jnp.int8):
@@ -38,39 +39,28 @@ def gather_dense(qz: QuantizedKV, tbl, page_size):
     return jax.vmap(lambda f: flat[:, f])(idx)
 
 
+ROUTES = pytest.mark.parametrize("interpret", [True, False],
+                                 ids=["triton", "xla"])
+
+
+@ROUTES
 @pytest.mark.parametrize("lengths", [[40, 17], [64, 64], [33, 0]])
 @pytest.mark.parametrize("qdtype", [jnp.int8, jnp.float8_e4m3fn])
-def test_quant_paged_matches_oracle(lengths, qdtype):
+def test_quant_paged_matches_oracle(lengths, qdtype, interpret):
     b, hq, hkv, pps, ps, d = len(lengths), 8, 2, 4, 16, 64
     q, kqz, vqz, tbl = setup(jax.random.key(0), b, hq, hkv, pps, ps, d, qdtype)
     lens = jnp.array(lengths, jnp.int32)
 
-    out = paged_attention_decode_quantized(
-        q, kqz, vqz, lens, tbl, pages_per_compute_block=2, interpret=True
-    )
+    out = paged_attention_decode(q, kqz, vqz, lens, tbl, interpret=interpret)
     kg = gather_dense(kqz, tbl, ps)
     vg = gather_dense(vqz, tbl, ps)
     ref = attention_reference(q, kg, vg, causal=False, kv_length=lens)
-    # Rows with length 0 emit zeros from the kernel; mask them in the ref.
-    ref = jnp.where((lens > 0)[:, None, None, None], ref, 0.0)
+    # Rows with length 0 emit exact zeros.
+    np.testing.assert_array_equal(
+        np.asarray(out)[np.asarray(lens) == 0], 0.0)
     np.testing.assert_allclose(
         np.asarray(out, np.float32), np.asarray(ref, np.float32),
         atol=3e-3, rtol=2e-2,
-    )
-
-
-def test_quant_paged_gqa_block_sizes():
-    b, hq, hkv, pps, ps, d = 2, 16, 4, 8, 8, 64
-    q, kqz, vqz, tbl = setup(jax.random.key(1), b, hq, hkv, pps, ps, d)
-    lens = jnp.array([60, 29], jnp.int32)
-    o1 = paged_attention_decode_quantized(
-        q, kqz, vqz, lens, tbl, pages_per_compute_block=2, interpret=True
-    )
-    o2 = paged_attention_decode_quantized(
-        q, kqz, vqz, lens, tbl, pages_per_compute_block=8, interpret=True
-    )
-    np.testing.assert_allclose(
-        np.asarray(o1), np.asarray(o2), atol=1e-5, rtol=1e-5
     )
 
 
@@ -98,9 +88,8 @@ def test_quant_paged_extend_matches_oracle(offsets, qdtype):
     q_off = jnp.array(offsets, jnp.int32)
     kv_len = q_off + sq
 
-    out = paged_attention_extend_quantized(
+    out = paged_attention_extend(
         q, kqz, vqz, q_off, kv_len, tbl,
-        pages_per_compute_block=2, interpret=True,
     )
     kg = gather_dense(kqz, tbl, ps)
     vg = gather_dense(vqz, tbl, ps)
@@ -124,9 +113,8 @@ def test_quant_paged_extend_windowed_and_inactive():
     q_off = jnp.array([60, 0, 4], jnp.int32)
     kv_len = jnp.array([60 + sq, 0, 4 + sq], jnp.int32)
 
-    out = paged_attention_extend_quantized(
+    out = paged_attention_extend(
         q, kqz, vqz, q_off, kv_len, tbl, window=window,
-        pages_per_compute_block=2, interpret=True,
     )
     np.testing.assert_array_equal(np.asarray(out[1]), 0.0)
     kg = gather_dense(kqz, tbl, ps)
@@ -143,33 +131,14 @@ def test_quant_paged_extend_windowed_and_inactive():
         )
 
 
-def test_quant_paged_extend_block_invariance():
-    b, hq, hkv, sq, pps, ps, d = 1, 8, 2, 24, 16, 8, 64
-    q, kqz, vqz, tbl = setup_extend(
-        jax.random.key(5), b, hq, hkv, sq, pps, ps, d
-    )
-    q_off = jnp.array([77], jnp.int32)
-    kv_len = q_off + sq
-    o1 = paged_attention_extend_quantized(
-        q, kqz, vqz, q_off, kv_len, tbl,
-        pages_per_compute_block=2, interpret=True,
-    )
-    o2 = paged_attention_extend_quantized(
-        q, kqz, vqz, q_off, kv_len, tbl,
-        pages_per_compute_block=8, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(o1), np.asarray(o2),
-                               atol=1e-5, rtol=1e-5)
-
-
-def test_quant_paged_windowed():
+@ROUTES
+def test_quant_paged_windowed(interpret):
     b, hq, hkv, pps, ps, d = 2, 8, 2, 6, 16, 64
     q, kqz, vqz, tbl = setup(jax.random.key(4), b, hq, hkv, pps, ps, d)
     lens = jnp.array([90, 33], jnp.int32)
     window = 40
-    out = paged_attention_decode_quantized(
-        q, kqz, vqz, lens, tbl, window=window,
-        pages_per_compute_block=2, interpret=True,
+    out = paged_attention_decode(
+        q, kqz, vqz, lens, tbl, window=window, interpret=interpret,
     )
     kg = gather_dense(kqz, tbl, ps)
     vg = gather_dense(vqz, tbl, ps)
@@ -182,7 +151,8 @@ def test_quant_paged_windowed():
     )
 
 
-def test_quant_paged_decode_softcap():
+@ROUTES
+def test_quant_paged_decode_softcap(interpret):
     """Round-3: logit_softcap composes with int8 paged decode — compare
     against the dequantized oracle with the tanh cap applied to the
     scaled scores."""
@@ -191,9 +161,8 @@ def test_quant_paged_decode_softcap():
     lens = jnp.array([50, 23], jnp.int32)
     cap = 10.0
 
-    out = paged_attention_decode_quantized(
-        q, kqz, vqz, lens, tbl, pages_per_compute_block=2,
-        logit_softcap=cap, interpret=True,
+    out = paged_attention_decode(
+        q, kqz, vqz, lens, tbl, logit_softcap=cap, interpret=interpret,
     )
     kg = gather_dense(kqz, tbl, ps)
     vg = gather_dense(vqz, tbl, ps)
@@ -211,40 +180,37 @@ def test_quant_paged_decode_softcap():
     )
 
 
-def test_quant_paged_extend_chunk_split_matches_unsplit(monkeypatch):
-    """VMEM-driven chunk-axis split on the quantized extend path (same
-    budget logic as the dense twin — regression for the scoped-VMEM OOM
-    at large bucket x group packings)."""
-    import flash_attention_cute_tpu.ops.paged_attention as pa
+@ROUTES
+@pytest.mark.parametrize("hq,hkv", [(28, 4), (8, 1)], ids=["gqa7", "mqa8"])
+def test_quant_paged_gqa_groups_bf16(interpret, hq, hkv):
+    """bf16 queries over int8 pages at GQA groups 7 and 8."""
+    b, pps, ps, d = 2, 8, 16, 128
+    q, kqz, vqz, tbl = setup(jax.random.key(1), b, hq, hkv, pps, ps, d)
+    q = q.astype(jnp.bfloat16)
+    lens = jnp.array([100, 29], jnp.int32)
+    out = paged_attention_decode(q, kqz, vqz, lens, tbl, interpret=interpret)
+    ref = attention_reference(
+        q, gather_dense(kqz, tbl, ps).astype(q.dtype),
+        gather_dense(vqz, tbl, ps).astype(q.dtype), kv_length=lens,
+    )
+    np.testing.assert_allclose(
+        np.asarray(out, np.float32), np.asarray(ref, np.float32),
+        atol=3e-2, rtol=2e-2,
+    )
 
-    b, hq, hkv, sq, pps, ps, d = 2, 4, 2, 48, 16, 8, 64
+
+def test_quant_paged_extend_large_chunk_gqa7():
+    """A chunk longer than the prefix at GQA group 7."""
+    b, hq, hkv, sq, pps, ps, d = 1, 28, 4, 96, 16, 8, 64
     q, kqz, vqz, tbl = setup_extend(
         jax.random.key(23), b, hq, hkv, sq, pps, ps, d
     )
-    q_off = jnp.array([40, 0], jnp.int32)
+    q_off = jnp.array([20], jnp.int32)
     kv_len = q_off + sq
-    kwargs = dict(pages_per_compute_block=2, interpret=True)
-
-    base = paged_attention_extend_quantized(
-        q, kqz, vqz, q_off, kv_len, tbl, **kwargs)
-
-    monkeypatch.setattr(pa, "MAX_EXTEND_ROWS", 8)
-    paged_attention_extend_quantized.clear_cache()
-    try:
-        out = paged_attention_extend_quantized(
-            q, kqz, vqz, q_off, kv_len, tbl, **kwargs)
-    finally:
-        monkeypatch.undo()
-        paged_attention_extend_quantized.clear_cache()
-
-    np.testing.assert_allclose(
-        np.asarray(out, np.float32), np.asarray(base, np.float32),
-        atol=1e-6, rtol=0,
-    )
-    kg = gather_dense(kqz, tbl, ps)
-    vg = gather_dense(vqz, tbl, ps)
+    out = paged_attention_extend(q, kqz, vqz, q_off, kv_len, tbl)
     ref = attention_reference(
-        q, kg, vg, causal=True, kv_length=kv_len, q_offset=q_off
+        q, gather_dense(kqz, tbl, ps), gather_dense(vqz, tbl, ps),
+        causal=True, kv_length=kv_len, q_offset=q_off,
     )
     np.testing.assert_allclose(
         np.asarray(out, np.float32), np.asarray(ref, np.float32),

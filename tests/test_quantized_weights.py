@@ -1,10 +1,10 @@
 """Weight-only int8 quantization (ops/quantized_matmul.py +
-models/quantize.py): the Pallas dequant-fused matmul must be exactly the
+models/quantize.py): the dequant-dot matmul must be exactly the
 math of `x @ (values * scales)`, and a quantized parameter pytree must
 drop into forward / generate / the serving engine / a TP mesh unchanged.
 
 Parity protocol: quantized paths compare against the DEQUANTIZED-weights
-oracle (same numbers, dense math) — this isolates kernel/wiring bugs
+oracle (same numbers, dense math) — this isolates packing/wiring bugs
 from quantization error, which is weight-distribution-dependent and not
 what these tests measure. The reference has no weight quantization
 (reference: README.md:22 lists only quantized kernels as a TODO).
@@ -15,13 +15,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import forward, init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.models.quantize import (
+from flash_attention_cute.models import forward, init_params
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.models.quantize import (
     dequantize_params,
     quantize_params,
 )
-from flash_attention_cute_tpu.ops.quantized_matmul import (
+from flash_attention_cute.ops.quantized_matmul import (
     QuantizedWeight,
     dequantize_weight,
     quantize_weight,
@@ -29,25 +29,59 @@ from flash_attention_cute_tpu.ops.quantized_matmul import (
 )
 
 
-@pytest.mark.parametrize("impl", ["pallas", "xla"])
+# Activation dtypes: fp32 matches the dequantized oracle to summation
+# order; bf16 adds one bf16 rounding of the output (2^-8 relative).
+X_DTYPES = pytest.mark.parametrize(
+    "x_dtype,atol,rtol",
+    [(jnp.float32, 5e-4, 0), (jnp.bfloat16, 5e-2, 1e-2)],
+    ids=["f32", "bf16"],
+)
+
+
+@X_DTYPES
 @pytest.mark.parametrize(
     "t,k,n",
     [
         (8, 128, 256),     # aligned
-        (3, 300, 520),     # both axes padded, odd row count
+        (3, 300, 520),     # odd widths, odd row count
         (1, 64, 130),      # decode-like single row, tiny dims
-        (513, 1024, 384),  # multiple row tiles with a ragged tail
+        (513, 1024, 384),  # many rows
     ],
 )
-def test_matmul_matches_dequant_oracle(impl, t, k, n):
+def test_matmul_matches_dequant_oracle(x_dtype, atol, rtol, t, k, n):
     w = jax.random.normal(jax.random.key(0), (k, n), jnp.float32)
     x = jax.random.normal(jax.random.key(1), (t, k), jnp.float32)
-    qw = quantize_weight(w, impl=impl)
-    got = quantized_matmul(x, qw)
-    want = x @ dequantize_weight(qw)
-    assert got.shape == (t, n)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               atol=2e-4, rtol=0)
+    qw = quantize_weight(w)
+    got = quantized_matmul(x.astype(x_dtype), qw)
+    want = x.astype(x_dtype).astype(jnp.float32) @ dequantize_weight(qw)
+    assert got.shape == (t, n) and got.dtype == x_dtype
+    np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want),
+                               atol=atol, rtol=rtol)
+
+
+def test_int8_weights_carry_no_padding():
+    """The XLA dequant-dot needs no tile padding: values keep the dense
+    weight's [K, N], so no byte is stored or read for padding."""
+    w = jax.random.normal(jax.random.key(0), (2, 300, 520), jnp.float32)
+    qw = quantize_weight(w)
+    assert qw.values.shape == (2, 300, 520)
+    assert qw.scales.shape == (2, 520)
+
+
+def test_padded_int8_weights_stay_exact():
+    """Weights saved with zero-padded K rows / N columns and unit pad
+    scales (older checkpoints) multiply exactly like unpadded ones."""
+    w = jax.random.normal(jax.random.key(0), (300, 520), jnp.float32)
+    x = jax.random.normal(jax.random.key(1), (5, 300), jnp.float32)
+    qw = quantize_weight(w)
+    padded = QuantizedWeight(
+        values=jnp.pad(qw.values, ((0, 212), (0, 504))),
+        scales=jnp.pad(qw.scales, (0, 504), constant_values=1.0),
+        in_dim=300, out=520,
+    )
+    np.testing.assert_allclose(np.asarray(quantized_matmul(x, padded)),
+                               np.asarray(quantized_matmul(x, qw)),
+                               atol=1e-5, rtol=0)
 
 
 def test_matmul_bf16_activations():
@@ -111,7 +145,7 @@ def test_forward_matches_dequant_oracle(mode):
         lq, _ = forward(qp, cfg, ids, mode="prefill", interpret=True)
         ld, _ = forward(dq, cfg, ids, mode="prefill", interpret=True)
     else:
-        from flash_attention_cute_tpu.models.cache import KVCache
+        from flash_attention_cute.models.cache import KVCache
 
         ids = jax.random.randint(jax.random.key(1), (2, 16), 0,
                                  cfg.vocab_size)
@@ -135,7 +169,7 @@ def test_serving_engine_quantized_weights():
     """Tokens from the engine running int8 weights must equal tokens from
     the same engine running the dequantized-dense image of those weights
     (identical numbers; only the matmul implementation differs)."""
-    from flash_attention_cute_tpu.runtime.engine import ServingEngine
+    from flash_attention_cute.runtime.engine import ServingEngine
 
     cfg = tiny_test_config(num_layers=2)
     params = init_params(cfg, jax.random.key(0))
@@ -178,7 +212,7 @@ def test_tied_embeddings_lm_head_stays_dense():
 def test_lora_composes_with_quantized_base():
     """LoRA deltas ride on top of the quantized dense output
     (layers._maybe_lora wraps layers.dense)."""
-    from flash_attention_cute_tpu.models.lora import (
+    from flash_attention_cute.models.lora import (
         init_lora_params,
         lora_delta,  # noqa: F401  (import guards the API exists)
     )
@@ -205,12 +239,12 @@ def test_lora_composes_with_quantized_base():
 
 
 def test_tp_mesh_quantized_xla_impl(mesh8):
-    """impl='xla' quantized params shard over the ('data','model') mesh
+    """Quantized params shard over the ('data','model') mesh
     via the expanded pspecs and reproduce the single-device quantized
     forward."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from flash_attention_cute_tpu.models.config import ModelConfig
-    from flash_attention_cute_tpu.parallel.sharding import (
+    from flash_attention_cute.models.config import ModelConfig
+    from flash_attention_cute.parallel.sharding import (
         param_pspecs,
         shard_params,
     )
@@ -221,7 +255,7 @@ def test_tp_mesh_quantized_xla_impl(mesh8):
         max_position_embeddings=128, dtype=jnp.float32,
     )
     params = init_params(cfg, jax.random.key(0))
-    qp = quantize_params(params, impl="xla")
+    qp = quantize_params(params)
     specs = param_pspecs(cfg, qp)
     assert specs["layers"]["q_proj"].values == P(None, None, "model")
     assert specs["layers"]["q_proj"].scales == P(None, "model")
@@ -242,23 +276,13 @@ def test_tp_mesh_quantized_xla_impl(mesh8):
                                atol=5e-4, rtol=0)
 
 
-def test_pallas_impl_rejected_on_mesh():
-    from flash_attention_cute_tpu.parallel.sharding import param_pspecs
-
-    cfg = tiny_test_config(num_layers=1)
-    params = init_params(cfg, jax.random.key(0))
-    qp = quantize_params(params, impl="pallas")
-    with pytest.raises(AssertionError, match="xla"):
-        param_pspecs(cfg, qp)
-
-
 # ---------------------------------------------------------------------------
 # Int4 (grouped, nibble-packed) — same parity protocol: compare against
-# the DEQUANTIZED oracle so kernel/packing bugs are isolated from the
-# (much larger) int4 quantization error.
+# the DEQUANTIZED oracle so packing bugs are isolated from the (much
+# larger) int4 quantization error.
 # ---------------------------------------------------------------------------
 
-from flash_attention_cute_tpu.ops.quantized_matmul import (  # noqa: E402
+from flash_attention_cute.ops.quantized_matmul import (  # noqa: E402
     GROUP4,
     QuantizedWeight4,
     dequantize_weight4,
@@ -281,8 +305,8 @@ def test_int4_pack_roundtrip_exact():
     k_pad = vals.shape[0] * 2
     bk = min(512, k_pad)
     blocks = vals.reshape(k_pad // bk, bk // 2, -1)
-    # Biased storage (u = q + 8; round-5c format, ops/quantized_matmul
-    # _unpack4 docstring): decode independently with numpy.
+    # Biased storage (u = q + 8, ops/quantized_matmul._unpack4):
+    # decode independently with numpy.
     lo = (blocks & 0xF) - 8
     hi = ((blocks >> 4) & 0xF) - 8
     q = np.concatenate([lo, hi], axis=1).reshape(k_pad, -1)
@@ -294,25 +318,28 @@ def test_int4_pack_roundtrip_exact():
     assert np.all(np.abs(np.asarray(dq) - np.asarray(w)) <= 0.5 * step + 1e-6)
 
 
-@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@X_DTYPES
 @pytest.mark.parametrize(
     "t,k,n",
     [
         (8, 256, 256),     # aligned, one K block
-        (3, 300, 520),     # both axes padded, odd row count
+        (3, 300, 520),     # K padded to the pack block, odd row count
         (1, 64, 130),      # decode-like single row, tiny dims
         (257, 1152, 384),  # multiple K blocks incl. a ragged 256 tail
     ],
 )
-def test_int4_matmul_matches_dequant_oracle(impl, t, k, n):
+def test_int4_matmul_matches_dequant_oracle(x_dtype, atol, rtol, t, k, n):
     w = jax.random.normal(jax.random.key(0), (k, n), jnp.float32)
     x = jax.random.normal(jax.random.key(1), (t, k), jnp.float32)
-    qw = quantize_weight_int4(w, impl=impl)
-    got = quantized_matmul(x, qw)
-    want = x @ dequantize_weight4(qw)
-    assert got.shape == (t, n)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               atol=5e-4, rtol=0)
+    qw = quantize_weight_int4(w)
+    got = quantized_matmul(x.astype(x_dtype), qw)
+    # int4 dequantizes to the activation dtype (one rounding per weight).
+    want = (x.astype(x_dtype).astype(jnp.float32)
+            @ dequantize_weight4(qw, x_dtype).astype(jnp.float32))
+    assert got.shape == (t, n) and got.dtype == x_dtype
+    assert qw.values.shape[-1] == n  # N is never padded
+    np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want),
+                               atol=atol, rtol=rtol)
 
 
 def test_int4_groups_have_independent_scales():
@@ -356,7 +383,7 @@ def test_int4_forward_matches_dequant_oracle(mode):
         lq, _ = forward(qp, cfg, ids, mode="prefill", interpret=True)
         ld, _ = forward(dq, cfg, ids, mode="prefill", interpret=True)
     else:
-        from flash_attention_cute_tpu.models.cache import KVCache
+        from flash_attention_cute.models.cache import KVCache
 
         ids = jax.random.randint(jax.random.key(1), (2, 16), 0,
                                  cfg.vocab_size)
@@ -377,7 +404,7 @@ def test_int4_forward_matches_dequant_oracle(mode):
 
 
 def test_int4_serving_engine_token_parity():
-    from flash_attention_cute_tpu.runtime.engine import ServingEngine
+    from flash_attention_cute.runtime.engine import ServingEngine
 
     cfg = tiny_test_config(num_layers=2)
     params = init_params(cfg, jax.random.key(0))
@@ -401,20 +428,20 @@ def test_int4_serving_engine_token_parity():
 
 
 def test_int4_rejected_on_mesh():
-    from flash_attention_cute_tpu.parallel.sharding import param_pspecs
+    from flash_attention_cute.parallel.sharding import param_pspecs
 
     cfg = tiny_test_config(num_layers=1)
     params = init_params(cfg, jax.random.key(0))
-    qp = quantize_params(params, bits=4, impl="xla")
-    with pytest.raises(NotImplementedError, match="single-chip"):
+    qp = quantize_params(params, bits=4)
+    with pytest.raises(NotImplementedError, match="single-card"):
         param_pspecs(cfg, qp)
 
 
 def test_quantize_params_on_host():
     """Host-side init+quantize must produce the same int8 pytree as
-    quantizing a device-resident dense image (full-depth models whose
-    bf16 image exceeds HBM can ONLY take the host path)."""
-    from flash_attention_cute_tpu.models.quantize import (
+    quantizing a device-resident dense image (models whose dense image
+    exceeds device memory can ONLY take the host path)."""
+    from flash_attention_cute.models.quantize import (
         quantize_params_on_host,
     )
 

@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import llama_config_from_hf
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.models.convert import params_from_state_dict
-from flash_attention_cute_tpu.models.transformer import init_params
-from flash_attention_cute_tpu.runtime import generate, greedy_generate
-from flash_attention_cute_tpu.runtime.sampling import SamplingParams, sample_token
+from flash_attention_cute.models import llama_config_from_hf
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.models.convert import params_from_state_dict
+from flash_attention_cute.models.transformer import init_params
+from flash_attention_cute.runtime import generate, greedy_generate
+from flash_attention_cute.runtime.sampling import SamplingParams, sample_token
 
 transformers = pytest.importorskip("transformers")
 torch = pytest.importorskip("torch")
@@ -118,7 +118,7 @@ def test_min_p_matches_probability_oracle():
     """min_p keeps exactly the tokens whose softmax probability is
     >= min_p * max probability (renormalization-invariant ratio), for
     any temperature, without sorting."""
-    from flash_attention_cute_tpu.runtime.sampling import filter_logits
+    from flash_attention_cute.runtime.sampling import filter_logits
 
     rng = np.random.default_rng(7)
     logits = jnp.asarray(rng.standard_normal((5, 97)) * 3.0, jnp.float32)

@@ -1,4 +1,4 @@
-"""Sliding-window attention: kernels + reference + model integration.
+"""Sliding-window attention: routes + reference + model integration.
 
 The reference repo *rejects* sliding windows
 (reference: models/modeling_qwen2.py:261-269); this framework supports them
@@ -11,9 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.ops.flash_decode import flash_attention_decode
-from flash_attention_cute_tpu.ops.flash_fwd import flash_attention_fwd
-from flash_attention_cute_tpu.ops.reference import attention_reference
+from flash_attention_cute import flash_attention_forward
+from flash_attention_cute.ops.reference import attention_reference
 
 
 def make_qkv(key, b, hq, hkv, sq, skv, d, dtype=jnp.float32):
@@ -56,10 +55,7 @@ def test_reference_windowed_vs_naive(window):
 @pytest.mark.parametrize("window", [64, 200])
 def test_fwd_kernel_windowed(sq, skv, window):
     q, k, v = make_qkv(jax.random.key(1), 2, 4, 2, sq, skv, 64)
-    out = flash_attention_fwd(
-        q, k, v, causal=True, window=window,
-        block_q=128, block_kv=128, interpret=True,
-    )
+    out = flash_attention_forward(q, k, v, causal=True, window=window)
     ref = attention_reference(q, k, v, causal=True, window=window)
     np.testing.assert_allclose(
         np.asarray(out, np.float32), np.asarray(ref, np.float32),
@@ -67,16 +63,16 @@ def test_fwd_kernel_windowed(sq, skv, window):
     )
 
 
-def test_fwd_kernel_window_block_skip_invariance():
-    """Numerics independent of tiling (block skips must not drop blocks
-    that still straddle a window edge)."""
-    q, k, v = make_qkv(jax.random.key(2), 1, 2, 2, 512, 512, 64)
-    o1 = flash_attention_fwd(q, k, v, causal=True, window=96,
-                             block_q=128, block_kv=128, interpret=True)
-    o2 = flash_attention_fwd(q, k, v, causal=True, window=96,
-                             block_q=256, block_kv=512, interpret=True)
-    np.testing.assert_allclose(np.asarray(o1), np.asarray(o2),
-                               atol=1e-5, rtol=1e-5)
+def test_fwd_windowed_bf16_gqa7():
+    """A window narrower than the sequence at Qwen2-7B's group 7, bf16."""
+    q, k, v = make_qkv(jax.random.key(2), 1, 28, 4, 512, 512, 64,
+                       jnp.bfloat16)
+    out = flash_attention_forward(q, k, v, causal=True, window=96)
+    ref = attention_reference(q, k, v, causal=True, window=96)
+    np.testing.assert_allclose(
+        np.asarray(out, np.float32), np.asarray(ref, np.float32),
+        atol=2e-2, rtol=2e-2,
+    )
 
 
 @pytest.mark.parametrize("window", [64, 300])
@@ -85,9 +81,8 @@ def test_decode_kernel_windowed(window, lengths):
     b = len(lengths)
     q, k, v = make_qkv(jax.random.key(3), b, 8, 2, 1, 1024, 64)
     kv_length = jnp.array(lengths, jnp.int32)
-    out = flash_attention_decode(
+    out = flash_attention_forward(
         q, k, v, kv_length=kv_length, window=window,
-        block_kv=128, num_splits=4, interpret=True,
     )
     ref = attention_reference(
         q, k, v, causal=False, kv_length=kv_length, window=window
@@ -101,9 +96,9 @@ def test_decode_kernel_windowed(window, lengths):
 def test_qwen2_sliding_window_model():
     """Two-segment scan: full-attention layers below max_window_layers,
     windowed layers above; prefill+decode consistency vs dense forward."""
-    from flash_attention_cute_tpu.models import forward, init_params
-    from flash_attention_cute_tpu.models.cache import KVCache
-    from flash_attention_cute_tpu.models.config import tiny_test_config
+    from flash_attention_cute.models import forward, init_params
+    from flash_attention_cute.models.cache import KVCache
+    from flash_attention_cute.models.config import tiny_test_config
 
     cfg = tiny_test_config(
         num_layers=4,
@@ -136,7 +131,7 @@ def test_qwen2_sliding_window_model():
 def test_qwen2_config_accepts_sliding_window():
     """The reference raises on use_sliding_window
     (models/modeling_qwen2.py:261-269); we accept and record it."""
-    from flash_attention_cute_tpu.models.qwen2 import qwen2_config_from_hf
+    from flash_attention_cute.models.qwen2 import qwen2_config_from_hf
 
     cfg = qwen2_config_from_hf(dict(
         vocab_size=1000, hidden_size=64, intermediate_size=128,

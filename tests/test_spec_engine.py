@@ -12,10 +12,10 @@ import jax
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models import init_params
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.runtime.engine import ServingEngine
-from flash_attention_cute_tpu.runtime.spec_engine import (
+from flash_attention_cute.models import init_params
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.runtime.engine import ServingEngine
+from flash_attention_cute.runtime.spec_engine import (
     SpeculativeServingEngine,
 )
 
@@ -201,7 +201,7 @@ def test_spec_engine_sampled_deterministic_and_replay_stable(target, draft):
     """Rejection-sampling speculative serving: same seed => identical
     streams, and a preemption-forcing tight pool must REPLAY the same
     tokens (randomness is keyed by request seed + absolute position)."""
-    from flash_attention_cute_tpu.runtime.sampling import SamplingParams
+    from flash_attention_cute.runtime.sampling import SamplingParams
 
     cfg, _ = target
     prompts = _requests(cfg, seed=31, n=2)
@@ -219,7 +219,7 @@ def test_spec_engine_sampled_deterministic_and_replay_stable(target, draft):
 
 
 def test_spec_engine_sampled_low_temperature_matches_greedy(target, draft):
-    from flash_attention_cute_tpu.runtime.sampling import SamplingParams
+    from flash_attention_cute.runtime.sampling import SamplingParams
 
     cfg, _ = target
     prompts = _requests(cfg, seed=33, n=2)
@@ -237,7 +237,7 @@ def test_spec_engine_data_parallel_replicas(target, draft):
     import jax as _jax
     from jax.sharding import Mesh
 
-    from flash_attention_cute_tpu.runtime.dp_engine import (
+    from flash_attention_cute.runtime.dp_engine import (
         DataParallelServingEngine,
     )
 
@@ -250,7 +250,7 @@ def test_spec_engine_data_parallel_replicas(target, draft):
     mesh = Mesh(
         np.array(_jax.devices()[:4]).reshape(2, 2), ("data", "model")
     )
-    from flash_attention_cute_tpu.runtime.spec_engine import (
+    from flash_attention_cute.runtime.spec_engine import (
         SpeculativeServingEngine as SpecCls,
     )
     eng = DataParallelServingEngine(

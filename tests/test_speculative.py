@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attention_cute_tpu.models.config import tiny_test_config
-from flash_attention_cute_tpu.models.transformer import init_params
-from flash_attention_cute_tpu.runtime.generate import greedy_generate
-from flash_attention_cute_tpu.runtime.speculative import speculative_generate
+from flash_attention_cute.models.config import tiny_test_config
+from flash_attention_cute.models.transformer import init_params
+from flash_attention_cute.runtime.generate import greedy_generate
+from flash_attention_cute.runtime.speculative import speculative_generate
 
 
 @pytest.fixture(scope="module")
@@ -148,7 +148,7 @@ def test_accept_and_emit_marginal_is_target_distribution():
     proposal q, the emitted token at the round's first position has
     marginal distribution EXACTLY p_0 (the target's). Monte Carlo over
     the factored acceptance/residual helper."""
-    from flash_attention_cute_tpu.runtime.speculative import (
+    from flash_attention_cute.runtime.speculative import (
         _accept_and_emit,
     )
 
@@ -174,7 +174,7 @@ def test_accept_and_emit_marginal_is_target_distribution():
 
 
 def test_sampled_speculative_deterministic_and_runs(target, draft):
-    from flash_attention_cute_tpu.runtime.sampling import SamplingParams
+    from flash_attention_cute.runtime.sampling import SamplingParams
 
     cfg, params = target
     dcfg, dparams = draft
@@ -199,7 +199,7 @@ def test_sampled_speculative_deterministic_and_runs(target, draft):
 def test_sampled_speculative_low_temperature_matches_greedy(target, draft):
     """As temperature -> 0 the filtered distribution collapses to the
     argmax, so rejection-sampling output must equal the greedy chain."""
-    from flash_attention_cute_tpu.runtime.sampling import SamplingParams
+    from flash_attention_cute.runtime.sampling import SamplingParams
 
     cfg, params = target
     dcfg, dparams = draft
@@ -213,7 +213,7 @@ def test_sampled_speculative_low_temperature_matches_greedy(target, draft):
 
 
 def test_sampled_speculative_eos_freezes(target, draft):
-    from flash_attention_cute_tpu.runtime.sampling import SamplingParams
+    from flash_attention_cute.runtime.sampling import SamplingParams
 
     cfg, params = target
     dcfg, dparams = draft

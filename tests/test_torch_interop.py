@@ -11,7 +11,7 @@ import pytest
 transformers = pytest.importorskip("transformers")
 torch = pytest.importorskip("torch")
 
-from flash_attention_cute_tpu.interop import torch_patch
+from flash_attention_cute.interop import torch_patch
 
 
 @pytest.fixture
@@ -146,7 +146,7 @@ def test_zero_length_mask_rejected():
     """A 4-D mask whose probed last query row is all-False (e.g. a mask
     processor that fully masks padded query rows) must raise, not silently
     return zeros for the whole sequence (round-2 advisor finding)."""
-    from flash_attention_cute_tpu.interop.torch_patch import (
+    from flash_attention_cute.interop.torch_patch import (
         _padding_kv_lengths,
     )
 
@@ -169,7 +169,7 @@ def test_custom_op_fake_kernel_traces():
     loading rely on."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from flash_attention_cute_tpu.interop.torch_patch import _get_custom_op
+    from flash_attention_cute.interop.torch_patch import _get_custom_op
 
     op = _get_custom_op()
     with FakeTensorMode():
